@@ -1,0 +1,166 @@
+"""The whole slice: vacv_tpu_torch's Preprocessor against vacv_tpu's.
+
+The same numpy frames go through the JAX Preprocessor, under its
+``pallas`` backend (the fused kernel in interpret mode, exact path) and
+its ``jnp`` backend (the XLA chain), and through the port's, on its
+fused route (the kernel's plain version on a CPU tensor) and on its
+``torch`` chain.  Bars: cosine >= 1-1e-6 and max-abs < 0.05.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import vacv_tpu as vc
+from vacv_tpu import config as jconfig
+from vacv_tpu.models import PreprocessConfig as JConfig
+from vacv_tpu.models import Preprocessor as JPre
+from vacv_tpu.utils.compare import cosine_similarity
+from vacv_tpu_torch import config
+from vacv_tpu_torch.core.types import ColorCode, InterMode, Layout, VRect
+from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+
+H, W = 360, 640
+RECT = (17, 20, 617, 340)
+
+
+def frames(seed, n=2, h=H, w=W):
+    return np.random.default_rng(seed).integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+
+
+def jcfg(cfg: PreprocessConfig) -> JConfig:
+    """The JAX package's config for a port config (same field values)."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    if cfg.crop_rect is not None:
+        kw["crop_rect"] = vc.VRect(*dataclasses.astuple(cfg.crop_rect))
+    kw["interpolation"] = vc.InterMode(int(cfg.interpolation))
+    kw["out_layout"] = vc.Layout(cfg.out_layout.value)
+    return JConfig(**kw)
+
+
+def jax_batch(cfg, batch, backend):
+    with jconfig.backend(backend):
+        return np.asarray(JPre(jcfg(cfg)).batch(batch))
+
+
+def assert_close(got, want):
+    assert got.shape == want.shape
+    assert abs(cosine_similarity(got, want) - 1) < 1e-6
+    assert np.max(np.abs(got - want)) < 0.05
+
+
+CONFIGS = {
+    "config4": PreprocessConfig(crop_rect=VRect(*RECT), out_size=(112, 96)),
+    "cubic": PreprocessConfig(crop_rect=VRect(*RECT), out_size=(112, 96),
+                              interpolation=InterMode.INTER_CUBIC),
+    "nearest_static": PreprocessConfig(out_size=(128, 72), interpolation=InterMode.INTER_NEAREST,
+                                       mean=(104.0, 117.0, 123.0), stddev=(57.1, 57.4, 58.4)),
+}
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("jax_backend", ["pallas", "jnp"])
+@pytest.mark.parametrize("port_backend", ["auto", "torch"])
+def test_batch_matches_jax_preprocessor(name, jax_backend, port_backend):
+    cfg = CONFIGS[name]
+    batch = frames(0)
+    want = jax_batch(cfg, batch, jax_backend)
+    pre = Preprocessor(cfg)
+    with config.backend(port_backend):
+        route = pre.describe_route(batch.shape[1:])
+        got = pre.batch(batch).numpy()
+    assert route == ("fused_torch" if port_backend == "auto" else "torch_chain")
+    assert_close(got, want)
+
+
+def test_call_single_frame_matches():
+    cfg = CONFIGS["config4"]
+    frame = frames(1, n=1)[0]
+    with jconfig.backend("jnp"):
+        want = np.asarray(JPre(jcfg(cfg))(frame))
+    got = Preprocessor(cfg)(frame)
+    assert got.shape == (3, 96, 112) and got.dtype == torch.float32
+    assert_close(got.numpy(), want)
+
+
+def test_chain_routes_match_jax():
+    """Configs the fused route does not take run the chain on both sides."""
+    for cfg in (
+        PreprocessConfig(crop_rect=VRect(*RECT), out_size=(112, 96),
+                         interpolation=InterMode.INTER_AREA),
+        PreprocessConfig(crop_rect=VRect(*RECT), out_size=(112, 96), out_layout=Layout.HWC),
+        PreprocessConfig(crop_rect=VRect(*RECT), normalize=False),
+    ):
+        pre = Preprocessor(cfg)
+        assert pre.describe_route((H, W, 3)) == "torch_chain"
+        batch = frames(2, n=1)
+        want = jax_batch(cfg, batch, "jnp")
+        got = pre.batch(batch).numpy()
+        if cfg.normalize:
+            assert_close(got, want)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_runtime_top_matches_moved_rect(backend):
+    """batch(top=...) moves the crop at run time (tracking camera); it
+    equals a JAX Preprocessor built with the moved rect."""
+    cfg = CONFIGS["config4"]
+    batch = frames(3)
+    moved = dataclasses.replace(cfg, crop_rect=VRect(RECT[0], 5, RECT[2], 5 + 320))
+    want = jax_batch(moved, batch, "jnp")
+    pre = Preprocessor(cfg)
+    with config.backend(backend):
+        for top in (5, torch.tensor(5, dtype=torch.int32)):
+            assert_close(pre.batch(batch, top=top).numpy(), want)
+
+
+def test_describe_route_and_counters():
+    cfg = CONFIGS["config4"]
+    assert Preprocessor(cfg).describe_route((H, W, 3)) == "fused_torch"
+    # Describing a CUDA route needs no card.
+    assert Preprocessor(cfg, device="cuda").describe_route((H, W, 3)) == "cuda_fused"
+    assert Preprocessor(cfg).describe_route((H, W, 3), device="cuda") == "cuda_fused"
+    assert Preprocessor(cfg).describe_route((H, W, 3), torch.float32) == "torch_chain"
+    assert Preprocessor(cfg).describe_route((H, W, 4)) == "torch_chain"
+    # A crop that leaves the frame takes the chain.
+    assert Preprocessor(cfg).describe_route((300, W, 3)) == "torch_chain"
+    with config.backend("torch"):
+        assert Preprocessor(cfg).describe_route((H, W, 3)) == "torch_chain"
+    k0 = config.kernel_count("preprocess_fused")
+    p0 = config.kernel_count("preprocess_fused_torch")
+    Preprocessor(cfg).batch(frames(4, n=1))
+    assert config.kernel_count("preprocess_fused_torch") == p0 + 1
+    assert config.kernel_count("preprocess_fused") == k0  # no card here
+
+
+def test_devices_are_explicit():
+    """A numpy batch goes to the Preprocessor's device; a tensor stays
+    where it lies."""
+    cfg = CONFIGS["config4"]
+    batch = frames(5, n=1)
+    assert Preprocessor(cfg).batch(batch).device.type == "cpu"
+    assert Preprocessor(cfg, device="meta").batch(torch.from_numpy(batch)).device.type == "cpu"
+
+
+def test_unported_configs_raise():
+    with pytest.raises(NotImplementedError, match="queue 1 #7"):
+        Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21,
+                                      out_size=(224, 224)))
+    with pytest.raises(NotImplementedError, match="queue 1 #10"):
+        Preprocessor(PreprocessConfig(warp=(((1, 0, 0), (0, 1, 0)), (64, 64))))
+
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_runtime_top_is_clamped_on_both_routes(backend):
+    cfg = CONFIGS["config4"]
+    batch = frames(6, n=1)
+    pre = Preprocessor(cfg)
+    with config.backend(backend):
+        np.testing.assert_array_equal(pre.batch(batch, top=-9).numpy(),
+                                      pre.batch(batch, top=0).numpy())
+        np.testing.assert_array_equal(pre.batch(batch, top=torch.tensor(999)).numpy(),
+                                      pre.batch(batch, top=H - 320).numpy())

@@ -1,0 +1,164 @@
+"""Preprocess pipelines — the package's "model" layer.
+
+The counterpart of ``vacv_tpu/models/pipeline.py``.  ``Preprocessor``
+holds a declarative ``PreprocessConfig`` and runs it on a frame or a
+batch of frames.  Where the config is the reference's flagship chain
+(crop → resize → CHW f32 → normalize, BASELINE config 4) and the input
+a u8 BGR batch, the whole chain is one fused call
+(``ops/cuda/preprocess.py``): the CUDA kernel for a CUDA tensor, its
+plain PyTorch version for a CPU tensor.  Anything else runs the chain of
+plain ops frame by frame.
+
+Devices are explicit: a tensor is processed on the device it lies on; a
+numpy input goes to the ``device`` the Preprocessor was given.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .. import config
+from ..core.image import Image, as_tensor
+from ..core.types import ColorCode, InterMode, Layout, VRect
+from ..ops.crop import crop, crop_dynamic
+from ..ops.cuda.preprocess import INTERP_MODES, preprocess_fused_batch
+from ..ops.dtype import as_torch_dtype
+from ..ops.normalize import normalize
+from ..ops.resize import resize
+
+_FUSED_INTERP = {mode: name for name, mode in INTERP_MODES.items()}
+
+
+@dataclass(frozen=True)
+class PreprocessConfig:
+    """Declarative preprocessing recipe (all fields static)."""
+
+    # Color conversion applied first (NV input).  Not ported yet.
+    color_code: ColorCode | None = None
+    # Optional crop ROI in source coordinates.
+    crop_rect: VRect | None = None
+    # Affine warp ((2x3 matrix), (w, h)).  Not ported yet.
+    warp: tuple[tuple, tuple[int, int]] | None = None
+    # Output spatial size (w, h); None keeps input size.
+    out_size: tuple[int, int] | None = None
+    interpolation: InterMode = InterMode.INTER_LINEAR
+    # Output layout & normalization.
+    out_layout: Layout = Layout.CHW
+    normalize: bool = True
+    mean: tuple[float, ...] | None = None
+    stddev: tuple[float, ...] | None = None
+
+
+class Preprocessor:
+    """Runs a ``PreprocessConfig`` on HWC u8 frames.
+
+    ``__call__`` takes one (H, W, C) frame, ``batch`` a (N, H, W, C)
+    batch; both return the network-ready float32 tensor.
+    """
+
+    def __init__(self, cfg: PreprocessConfig, device="cpu"):
+        if cfg.color_code is not None:
+            raise NotImplementedError(
+                "color_code (NV camera input) is not ported yet: "
+                "ROADMAP.md queue 1 #7 (NV camera slice)"
+            )
+        if cfg.warp is not None:
+            raise NotImplementedError(
+                "warp is not ported yet: ROADMAP.md queue 1 #10 (warp_affine)"
+            )
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    def _fused_geometry(self, shape, dtype):
+        """(left, top, cw, ch, oh, ow, interp) when the whole pipeline
+        runs as ONE fused call for frames of per-image ``shape`` (HWC),
+        else None.
+
+        Any crop that lies inside the frame is taken; there are no
+        alignment or size floors.
+        """
+        cfg = self.cfg
+        if not config.use_fused():
+            return None
+        interp = _FUSED_INTERP.get(InterMode(cfg.interpolation))
+        if cfg.out_size is None or interp is None or cfg.out_layout != Layout.CHW:
+            return None
+        if len(shape) != 3 or shape[-1] != 3 or as_torch_dtype(dtype) != torch.uint8:
+            return None
+        h, w, _ = shape
+        if cfg.crop_rect is None:
+            left, top, cw, ch = 0, 0, w, h
+        else:
+            left, top, cw, ch = cfg.crop_rect.int_bounds()
+        if left < 0 or top < 0 or cw <= 0 or ch <= 0 or left + cw > w or top + ch > h:
+            return None
+        ow, oh = int(cfg.out_size[0]), int(cfg.out_size[1])
+        if ow <= 0 or oh <= 0:
+            return None
+        return (left, top, cw, ch, oh, ow, interp)
+
+    def describe_route(self, shape, dtype=None, device=None) -> str:
+        """Which route a batch of per-image ``shape`` (HWC) frames takes:
+        ``"cuda_fused"`` (the CUDA kernel), ``"fused_torch"`` (its plain
+        PyTorch version, on a CPU tensor) or ``"torch_chain"``.
+
+        ``device`` is where the batch lies; None means the
+        Preprocessor's own device (where a numpy batch goes)."""
+        geom = self._fused_geometry(tuple(shape), dtype or torch.uint8)
+        if geom is None:
+            return "torch_chain"
+        dev = torch.device(device) if device is not None else self.device
+        return "cuda_fused" if dev.type == "cuda" else "fused_torch"
+
+    def _run_fused(self, batch, geom, top):
+        cfg = self.cfg
+        left, top0, cw, ch, oh, ow, interp = geom
+        rect = VRect(left, top0, left + cw, top0 + ch)
+        return preprocess_fused_batch(
+            batch, rect, (ow, oh), top=top, mean=cfg.mean,
+            stddev=cfg.stddev, normalize=cfg.normalize, interp=interp,
+        )
+
+    def _run_chain(self, frame, top):
+        """The per-image chain of plain ops (crop → resize → layout →
+        f32 → normalize)."""
+        cfg = self.cfg
+        img = Image(frame, Layout.HWC)
+        if cfg.crop_rect is not None:
+            if top is None:
+                img = crop(img, cfg.crop_rect)
+            else:
+                # Clamped to the frame, as the fused route clamps it.
+                top = torch.clamp(top, min=0) if isinstance(top, torch.Tensor) else max(int(top), 0)
+                left, _, cw, ch = cfg.crop_rect.int_bounds()
+                img = crop_dynamic(img, left, top, cw, ch)
+        if cfg.out_size is not None:
+            w, h = cfg.out_size
+            img = resize(img, (w, h), interpolation=cfg.interpolation)
+        img = img.change_layout(cfg.out_layout)
+        img = img.change_dtype(torch.float32)
+        if cfg.normalize:
+            img = normalize(img, cfg.mean, cfg.stddev)
+        return img.data
+
+    def _to_device(self, arr):
+        return arr if isinstance(arr, torch.Tensor) else as_tensor(arr).to(self.device)
+
+    def batch(self, arr, top=None):
+        """Run the pipeline over (N, H, W, C) frames.
+
+        ``top`` optionally moves the crop rect's top at run time (a
+        Python int or a 0-d integer tensor, e.g. from a tracker running
+        on the device); the crop keeps its size and is clamped to the
+        frame."""
+        arr = self._to_device(arr)
+        geom = self._fused_geometry(tuple(arr.shape[1:]), arr.dtype)
+        if geom is not None:
+            return self._run_fused(arr, geom, top)
+        return torch.stack([self._run_chain(frame, top) for frame in arr])
+
+    def __call__(self, arr):
+        """Run the pipeline on one (H, W, C) frame."""
+        return self.batch(self._to_device(arr)[None])[0]
+

@@ -1,0 +1,91 @@
+"""Build the package's CUDA kernels with ``nvcc`` and load them by ctypes.
+
+The sources are ``vacv_tpu_torch/csrc/*.cu``.  They have a plain C
+interface, so one ``nvcc`` call compiles them into a shared library in
+seconds, with no PyTorch headers.  The library lands in
+``build/vacv_tpu_torch/`` beside the package, under a name keyed by a
+hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the last build.  Nothing here runs at import: the first CUDA call
+builds (``library()``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "vacv_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+@dataclass(frozen=True)
+class Build:
+    path: Path
+    log: str          # nvcc's output (the -Xptxas -v register/smem lines)
+    seconds: float    # compile time; 0 when an earlier build was reused
+    lib: ctypes.CDLL
+
+
+def _nvcc() -> str:
+    root = os.environ.get("CUDA_HOME")
+    if root and (Path(root) / "bin" / "nvcc").exists():
+        return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> Build:
+    """Compile (or reuse) and load the kernel library."""
+    srcs = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    out = BUILD_DIR / f"libvacv_kernels_{digest.hexdigest()[:16]}.so"
+    log, seconds = "", 0.0
+    if not out.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               *[str(p) for p in srcs if p.suffix == ".cu"]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return Build(out, log, seconds, ctypes.CDLL(str(out)))
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        fn = lib.vacv_cuda_error_string
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{what}: CUDA error {rc} ({fn(rc).decode()})")

@@ -1,0 +1,268 @@
+"""Fused crop → resize → u8 truncation → planar f32 → normalize, batched.
+
+The counterpart of ``vacv_tpu/ops/pallas/preprocess.py::
+preprocess_fused_batch`` (BASELINE config 4, the main path).  Given a
+(N, H, W, 3) u8 batch, a crop ``(left, top, cw, ch)`` and an output
+size, it returns (N, 3, oh, ow) f32: each crop resized separably
+(vertical taps, then horizontal), truncated to the u8 grid, and
+normalized per (frame, channel) as ``(x−μ)/(σ+1e-6)`` with self or
+static statistics.
+
+``preprocess_fused_batch`` is the wrapper.  On a CUDA tensor it launches
+the hand-written kernel (``vacv_tpu_torch/csrc/preprocess.cu``) or
+raises; on a CPU tensor it runs ``preprocess_fused_batch_torch``, the
+plain PyTorch version beside it, which the CPU tests and
+``chip_smoke.py`` hold the kernel against.
+
+The kernel reads resize weights as tap tables: for every output row
+(column) a start index and K weights, K = 2 (linear), 4 (cubic) or
+1 (nearest).  ``tap_table`` builds them from the same dense matrices the
+plain version multiplies by, and checks that they reconstruct them
+exactly.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ... import config
+from ...core.types import InterMode
+from ..crop import dynamic_slice
+from ..normalize import normalize_planes
+from ..resize import (
+    _cubic_weights, _linear_weights, _nearest_weights, u8_epilogue, u8_eps,
+)
+from . import build
+
+# The interpolations the kernel takes, and its taps per output row/column.
+INTERP_MODES = {
+    "linear": InterMode.INTER_LINEAR,
+    "cubic": InterMode.INTER_CUBIC,
+    "nearest": InterMode.INTER_NEAREST,
+}
+_TAPS = {"linear": 2, "cubic": 4, "nearest": 1}
+_MAX_FRAMES = 65535  # the kernel's grid z dimension
+
+
+def _resize_weights(n_in: int, n_out: int, interp: str) -> np.ndarray:
+    """Dense (n_out, n_in) resize weights, as the JAX kernel builds them
+    (vacv_tpu/ops/pallas/preprocess.py:62-75): the Q11-quantized grid
+    for linear, unquantized A=-0.75 cubic with boundary folding, one-hot
+    nearest."""
+    if interp == "cubic":
+        return _cubic_weights(n_in, n_out)
+    if interp == "nearest":
+        return _nearest_weights(n_in, n_out)
+    return _linear_weights(n_in, n_out, quantize=True)
+
+
+def dense_from_taps(starts: np.ndarray, weights: np.ndarray, n_in: int) -> np.ndarray:
+    """The dense (n_out, n_in) matrix a tap table stands for."""
+    n_out, k = weights.shape
+    dense = np.zeros((n_out, n_in), np.float32)
+    cols = starts[:, None].astype(np.int64) + np.arange(k)
+    np.put_along_axis(dense, cols, weights, axis=1)
+    return dense
+
+
+@functools.lru_cache(maxsize=64)
+def tap_table(n_in: int, n_out: int, interp: str):
+    """(starts int32 (n_out,), weights float32 (n_out, K)) for the
+    kernel: output i reads inputs ``starts[i] .. starts[i] + K - 1``."""
+    dense = _resize_weights(n_in, n_out, interp)
+    # _cubic_weights degrades to linear below 4 inputs; a 1-input axis
+    # has a single column.
+    k = min(2 if interp == "cubic" and n_in < 4 else _TAPS[interp], n_in)
+    nz = dense != 0
+    first = np.where(nz.any(axis=1), nz.argmax(axis=1), 0)
+    starts = np.minimum(first, n_in - k)
+    cols = starts[:, None] + np.arange(k)
+    weights = np.take_along_axis(dense, cols, axis=1).astype(np.float32)
+    starts = starts.astype(np.int32)
+    if not np.array_equal(dense_from_taps(starts, weights, n_in), dense):
+        raise RuntimeError(
+            f"resize weights ({interp}, {n_in}->{n_out}) have a nonzero "
+            f"outside their {k}-tap window"
+        )
+    return starts, weights
+
+
+@functools.lru_cache(maxsize=64)
+def _device_taps(n_in: int, n_out: int, interp: str, device: torch.device):
+    starts, weights = tap_table(n_in, n_out, interp)
+    return torch.from_numpy(starts).to(device), torch.from_numpy(weights).to(device)
+
+
+def _static_stats(v):
+    """Caller stats as a 3-tuple of floats (a scalar broadcasts), or None."""
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    arr = np.asarray(v, np.float32).reshape(-1)
+    if arr.size == 1:
+        arr = np.repeat(arr, 3)
+    return tuple(float(x) for x in arr[:3])
+
+
+def _geometry(batch, crop_rect, out_size, interp, top):
+    """(n, h, w, left, top, cw, ch, oh, ow), or ValueError."""
+    if batch.dtype != torch.uint8 or batch.ndim != 4 or batch.shape[-1] != 3:
+        raise ValueError("fused preprocess needs (N, H, W, 3) uint8")
+    if interp not in INTERP_MODES:
+        raise ValueError(f"interp must be one of {tuple(INTERP_MODES)}, got {interp!r}")
+    if isinstance(top, torch.Tensor) and (
+        top.numel() != 1 or top.is_floating_point() or top.is_complex()
+    ):
+        raise ValueError("runtime top must be a 1-element integer tensor")
+    n, h, w, _ = batch.shape
+    if crop_rect is None:
+        left, top, cw, ch = 0, 0, w, h
+    else:
+        left, top, cw, ch = crop_rect.int_bounds()
+    ow, oh = int(out_size[0]), int(out_size[1])
+    if left < 0 or cw <= 0 or ch <= 0 or left + cw > w or ch > h:
+        raise ValueError("crop rect outside the frame")
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"empty output size {out_size}")
+    return n, h, w, left, top, cw, ch, oh, ow
+
+
+def preprocess_fused_batch_torch(
+    batch,
+    crop_rect=None,
+    out_size=(224, 224),
+    *,
+    top=None,
+    mean=None,
+    stddev=None,
+    normalize=True,
+    trunc_u8=True,
+    interp="linear",
+):
+    """Plain PyTorch version of the fused kernel: slice crop, the same
+    dense weights through ``torch.matmul`` (vertical pass first), the u8
+    epilogue, then normalization.  Runs on any device."""
+    n, h, w, left, top0, cw, ch, oh, ow = _geometry(batch, crop_rect, out_size, interp, top)
+    # The top is clamped to [0, h - ch], as the kernel clamps it.
+    if isinstance(top, torch.Tensor):
+        top0 = torch.clamp(top.reshape(()).to(device=batch.device, dtype=torch.int64), 0, h - ch)
+    else:
+        top0 = min(max(top0 if top is None else int(top), 0), h - ch)
+    rows = dynamic_slice(batch, 1, top0, ch)
+    planes = rows[:, :, left : left + cw, :].permute(0, 3, 1, 2).to(torch.float32)
+    wy = torch.from_numpy(_resize_weights(ch, oh, interp)).to(batch.device)
+    wx = torch.from_numpy(_resize_weights(cw, ow, interp)).to(batch.device)
+    out = torch.matmul(torch.matmul(wy, planes), wx.T)
+    if trunc_u8:
+        out = u8_epilogue(out, INTERP_MODES[interp])
+    if normalize:
+        out = normalize_planes(out, _static_stats(mean), _static_stats(stddev))
+    return out.contiguous()
+
+
+@functools.lru_cache(maxsize=1)
+def _entry_points():
+    lib = build.library().lib
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    resize = lib.vacv_preprocess_resize
+    resize.restype = i
+    resize.argtypes = [
+        i, p, p, p,                  # device, stream, src, out
+        i, i, i, i, i, i, p,         # n, h, w, left, ch, top, top_ptr
+        i, i,                        # oh, ow
+        p, p, i, p, p, i,            # ystart, ywt, ky, xstart, xwt, kx
+        i, f, i,                     # trunc_u8, eps, static_norm
+        f, f, f, f, f, f,            # mean[3], std[3]
+    ]
+    norm = lib.vacv_preprocess_normalize
+    norm.restype = i
+    norm.argtypes = [i, p, p, i, ctypes.c_longlong, i, i, f, f, f, f, f, f]
+    return lib, resize, norm
+
+
+def _launch(batch, crop_rect, out_size, top, mean, stddev, normalize,
+            trunc_u8, interp):
+    n, h, w, left, top0, cw, ch, oh, ow = _geometry(batch, crop_rect, out_size, interp, top)
+    if not batch.is_contiguous():
+        raise ValueError("fused preprocess kernel needs a contiguous batch")
+    if n > _MAX_FRAMES:
+        raise ValueError(f"fused preprocess kernel takes at most {_MAX_FRAMES} frames")
+    dev = batch.device
+    out = torch.empty((n, 3, oh, ow), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    top_ptr = None
+    if isinstance(top, torch.Tensor):
+        # The kernel reads the top from the device and clamps it there,
+        # so a moving ROI never synchronises the host.
+        top_dev = top.reshape(()).to(device=dev, dtype=torch.int32)
+        top_ptr = top_dev.data_ptr()
+    elif top is not None:
+        top0 = int(top)
+    top0 = min(max(top0, 0), h - ch)
+    ys, yw = _device_taps(ch, oh, interp, dev)
+    xs, xw = _device_taps(cw, ow, interp, dev)
+    mean_s, std_s = _static_stats(mean), _static_stats(stddev)
+    static_norm = bool(normalize) and mean_s is not None and std_s is not None
+    zeros = (0.0, 0.0, 0.0)
+    lib, resize, norm = _entry_points()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = resize(
+        dev.index, stream, batch.data_ptr(), out.data_ptr(),
+        n, h, w, left, ch, top0, top_ptr, oh, ow,
+        ys.data_ptr(), yw.data_ptr(), yw.shape[1],
+        xs.data_ptr(), xw.data_ptr(), xw.shape[1],
+        int(trunc_u8), u8_eps(INTERP_MODES[interp]), int(static_norm),
+        *(mean_s if static_norm else zeros), *(std_s if static_norm else zeros),
+    )
+    build.check(lib, rc, "preprocess resize kernel")
+    if normalize and not static_norm:
+        rc = norm(
+            dev.index, stream, out.data_ptr(), n * 3, oh * ow,
+            int(mean_s is not None), int(std_s is not None),
+            *(mean_s or zeros), *(std_s or zeros),
+        )
+        build.check(lib, rc, "preprocess normalize kernel")
+    config.record_kernel("preprocess_fused")
+    return out
+
+
+def preprocess_fused_batch(
+    batch,
+    crop_rect=None,
+    out_size=(224, 224),
+    *,
+    top=None,
+    mean=None,
+    stddev=None,
+    normalize=True,
+    trunc_u8=True,
+    interp="linear",
+):
+    """Fused crop→resize→CHW→f32→normalize over a (N, H, W, 3) u8 batch.
+
+    ``crop_rect``: VRect-like; ``top`` optionally overrides the rect's
+    top with a runtime value (a Python int or a 0-d integer tensor; same
+    row count), clamped to ``[0, H - ch]``.  ``mean`` / ``stddev`` are
+    per-channel constants (None → per-image self-stats; a scalar
+    broadcasts).  ``interp`` is ``"linear"``, ``"cubic"`` or
+    ``"nearest"``.  Returns (N, 3, oh, ow) f32 on the batch's device.
+
+    A CUDA batch launches the kernel (counted as ``"preprocess_fused"``)
+    or raises; a CPU batch runs the plain version (counted as
+    ``"preprocess_fused_torch"``).  Raises ValueError for inputs the
+    kernel does not take.
+    """
+    kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
+                  trunc_u8=trunc_u8, interp=interp)
+    if batch.device.type == "cuda":
+        return _launch(batch, crop_rect, out_size, **kwargs)
+    if batch.device.type != "cpu":
+        raise ValueError(f"no fused preprocess route for device {batch.device}")
+    out = preprocess_fused_batch_torch(batch, crop_rect, out_size, **kwargs)
+    config.record_kernel("preprocess_fused_torch")
+    return out
