@@ -164,9 +164,50 @@ def test_import_loads_neither_jax_nor_triton():
     """The port must import on a host with no jax, triton, nvcc or GPU."""
     code = (
         "import sys, vacv_tpu_torch, vacv_tpu_torch.models, "
-        "vacv_tpu_torch.ops.cuda, vacv_tpu_torch.utils; "
+        "vacv_tpu_torch.ops.cuda, vacv_tpu_torch.ops.cuda.yuv2bgr, "
+        "vacv_tpu_torch.ops.cuda.normalize, vacv_tpu_torch.ops.cvt_color, "
+        "vacv_tpu_torch.utils; "
         "bad = [m for m in ('jax', 'triton', 'vacv_tpu') if m in sys.modules]; "
         "assert not bad, bad"
     )
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+
+
+def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
+    """Every wrapper declares its C entry point's argument types exactly
+    (a miscounted argtypes list only shows on the card otherwise)."""
+    import ctypes
+    import re
+    import types
+
+    from vacv_tpu_torch.ops.cuda import build, normalize, preprocess, yuv2bgr
+
+    c_types = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong,
+               "void*": ctypes.c_void_p, "const void*": ctypes.c_void_p}
+    declared = {}
+    for src in sorted(build.SRC_DIR.glob("*.cu")):
+        block = src.read_text().split('extern "C" {', 1)[1]
+        for name, params in re.findall(r"^(?:int|const char\*) (vacv_\w+)\(([^)]*)\)", block, re.M):
+            params = [" ".join(p.split()[:-1]) for p in params.split(",") if p.strip() != "void"]
+            declared[name] = [c_types[p] for p in params if p]
+
+    class Fn:
+        def __call__(self):
+            return 4096
+
+    fake = types.SimpleNamespace(**{name: Fn() for name in declared})
+    monkeypatch.setattr(build, "library", lambda: types.SimpleNamespace(lib=fake))
+    wrappers = (normalize._entry_points, preprocess._entry_points, yuv2bgr._entry_points)
+    for entry in wrappers:
+        entry.cache_clear()
+    try:
+        for entry in wrappers:
+            entry()
+    finally:
+        for entry in wrappers:
+            entry.cache_clear()
+    bound = {name: fn.argtypes for name, fn in vars(fake).items() if hasattr(fn, "argtypes")}
+    assert set(bound) == set(declared) - {"vacv_cuda_error_string"}
+    for name, argtypes in bound.items():
+        assert argtypes == declared[name], name

@@ -146,12 +146,13 @@ def test_devices_are_explicit():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 #7"):
-        Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21,
+    """NV codes are ported; the other colour codes and warp are not."""
+    Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21, out_size=(224, 224)))
+    with pytest.raises(NotImplementedError, match="queue 1 #12"):
+        Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_BGR2RGB,
                                       out_size=(224, 224)))
     with pytest.raises(NotImplementedError, match="queue 1 #10"):
         Preprocessor(PreprocessConfig(warp=(((1, 0, 0), (0, 1, 0)), (64, 64))))
-
 
 
 @pytest.mark.parametrize("backend", ["auto", "torch"])
@@ -164,3 +165,103 @@ def test_runtime_top_is_clamped_on_both_routes(backend):
                                       pre.batch(batch, top=0).numpy())
         np.testing.assert_array_equal(pre.batch(batch, top=torch.tensor(999)).numpy(),
                                       pre.batch(batch, top=H - 320).numpy())
+
+
+# ---- the NV camera path: stacked (H*3//2, W) NV21/NV12 buffers ----------
+
+NV_RECT = (33, 24, 33 + 512, 24 + 224)
+
+
+def nv_frames(seed, n=2, h=H, w=W):
+    return np.random.default_rng(seed).integers(0, 256, (n, h + (h + 1) // 2, w), dtype=np.uint8)
+
+
+NV_CONFIGS = {
+    "nv21": PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21,
+                             crop_rect=VRect(*NV_RECT), out_size=(112, 96)),
+    "nv12_rgb_static": PreprocessConfig(color_code=ColorCode.COLOR_YUV2RGB_NV12,
+                                        crop_rect=VRect(*NV_RECT), out_size=(112, 96),
+                                        mean=(104.0, 117.0, 123.0), stddev=(57.1, 57.4, 58.4)),
+    "nv21_cubic": PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21,
+                                   crop_rect=VRect(*NV_RECT), out_size=(112, 96),
+                                   interpolation=InterMode.INTER_CUBIC),
+    "nv12_bgra_odd_h": PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGRA_NV12,
+                                        crop_rect=VRect(10, 6, 270, 202), out_size=(96, 64)),
+}
+NV_SHAPES = {"nv12_bgra_odd_h": (215, 284)}
+NV_FUSED = {"nv21", "nv12_rgb_static"}
+
+
+@pytest.mark.parametrize("name", list(NV_CONFIGS))
+@pytest.mark.parametrize("jax_backend", ["pallas", "jnp"])
+@pytest.mark.parametrize("port_backend", ["auto", "torch"])
+def test_nv_batch_matches_jax_preprocessor(name, jax_backend, port_backend):
+    """The fused NV configs take the fused route on both sides under
+    their fused backends; cubic, an alpha code and an odd Y height take
+    the decode chain."""
+    cfg = NV_CONFIGS[name]
+    h, w = NV_SHAPES.get(name, (H, W))
+    batch = nv_frames(7, n=2, h=h, w=w)
+    want = jax_batch(cfg, batch, jax_backend)
+    pre = Preprocessor(cfg)
+    with config.backend(port_backend):
+        route = pre.describe_route(batch.shape[1:])
+        got = pre.batch(batch).numpy()
+    fused = port_backend == "auto" and name in NV_FUSED
+    assert route == ("fused_nv_torch" if fused else "torch_chain")
+    assert_close(got, want)
+
+
+def test_nv_call_single_frame_matches():
+    cfg = NV_CONFIGS["nv21"]
+    frame = nv_frames(8, n=1)[0]
+    with jconfig.backend("jnp"):
+        want = np.asarray(JPre(jcfg(cfg))(frame))
+    got = Preprocessor(cfg)(frame)
+    assert got.shape == (3, 96, 112) and got.dtype == torch.float32
+    assert_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+@pytest.mark.parametrize("top", [1, 37])
+def test_nv_runtime_top_matches_moved_rect(backend, top):
+    """batch(top=...) moves the crop on the NV routes too; it equals a
+    JAX Preprocessor built with the moved rect."""
+    cfg = NV_CONFIGS["nv21"]
+    batch = nv_frames(9)
+    moved = dataclasses.replace(cfg, crop_rect=VRect(NV_RECT[0], top, NV_RECT[2], top + 224))
+    want = jax_batch(moved, batch, "jnp")
+    pre = Preprocessor(cfg)
+    with config.backend(backend):
+        for t in (top, torch.tensor(top, dtype=torch.int32)):
+            assert_close(pre.batch(batch, top=t).numpy(), want)
+
+
+def test_nv_describe_route_and_counters():
+    cfg = NV_CONFIGS["nv21"]
+    shape = (H * 3 // 2, W)
+    assert Preprocessor(cfg).describe_route(shape) == "fused_nv_torch"
+    assert Preprocessor(cfg, device="cuda").describe_route(shape) == "cuda_fused_nv"
+    assert Preprocessor(cfg).describe_route(shape, device="cuda") == "cuda_fused_nv"
+    assert Preprocessor(cfg).describe_route((H * 3 // 2 + 1, W)) == "torch_chain"  # odd Y height
+    assert Preprocessor(cfg).describe_route((H * 3 // 2, W, 3)) == "torch_chain"   # not NV
+    assert Preprocessor(cfg).describe_route(shape, torch.float32) == "torch_chain"
+    assert Preprocessor(cfg).describe_route((150, 640)) == "torch_chain"  # crop leaves the frame
+    for name in ("nv21_cubic", "nv12_bgra_odd_h"):
+        assert Preprocessor(NV_CONFIGS[name]).describe_route(shape) == "torch_chain"
+    with config.backend("torch"):
+        assert Preprocessor(cfg).describe_route(shape) == "torch_chain"
+    names = ("preprocess_fused_nv", "preprocess_fused_nv_torch", "yuv2bgr", "yuv2bgr_torch",
+             "normalize_fused", "normalize_fused_torch")
+    before = {k: config.kernel_count(k) for k in names}
+
+    def rose():
+        return {k: config.kernel_count(k) - before[k] for k in names}
+
+    Preprocessor(cfg).batch(nv_frames(10))
+    assert rose() == dict.fromkeys(names, 0) | {"preprocess_fused_nv_torch": 1}
+    # The cubic chain decodes and normalizes each frame through the
+    # kernels' wrappers (their plain versions here: no card).
+    Preprocessor(NV_CONFIGS["nv21_cubic"]).batch(nv_frames(11, n=3))
+    assert rose() == dict.fromkeys(names, 0) | {
+        "preprocess_fused_nv_torch": 1, "yuv2bgr_torch": 3, "normalize_fused_torch": 3}

@@ -1,0 +1,28 @@
+// Q7 NV12/NV21 -> BGR decode of one pixel, shared by yuv2bgr.cu and the
+// NV source of preprocess.cu.  The integer math is nv_to_bgr_naive's
+// (reference cvt_color.cpp:76-94); the port's plain version is
+// vacv_tpu_torch/ops/cvt_color.py::yuv_to_bgr_q7.
+#pragma once
+
+#include <stdint.h>
+
+namespace vacv {
+
+// `first` and `second` are the two bytes of the pixel's chroma pair, in
+// memory order: (V, U) for NV21, (U, V) for NV12.  `>>` on a negative int
+// is an arithmetic shift under nvcc, so the adders floor, as C's signed
+// shift does in the reference.
+template <bool IS_NV12>
+__device__ __forceinline__ void decode_q7(int y, int first, int second,
+                                          int& b, int& g, int& r) {
+  const int u = (IS_NV12 ? first : second) - 128;
+  const int v = (IS_NV12 ? second : first) - 128;
+  const int ra = (179 * v) >> 7;
+  const int ga = (44 * u + 91 * v) >> 7;
+  const int ba = (227 * u) >> 7;
+  b = min(max(y + ba, 0), 255);
+  g = min(max(y - ga, 0), 255);
+  r = min(max(y + ra, 0), 255);
+}
+
+}  // namespace vacv

@@ -1,33 +1,45 @@
-// Fused crop -> resize -> u8 truncation -> planar f32 -> normalise, for
-// Hopper (sm_90a), with a plain C interface loaded by ctypes
+// Fused [NV decode ->] crop -> resize -> u8 truncation -> planar f32 ->
+// normalise, for Hopper (sm_90a), with a plain C interface loaded by ctypes
 // (vacv_tpu_torch/ops/cuda/preprocess.py).
 //
-// Replaces: vacv_tpu/ops/pallas/preprocess.py::_kernel, the TPU kernel
-// behind preprocess_fused_batch (BASELINE config 4).  What it computes is
-// the same; how is not.  The TPU kernel streams every crop row through
-// VMEM and resamples with banded bf16 matmuls, because the TPU has no fast
-// gather.  Here each thread gathers its own taps.
+// Replaces two TPU kernels of vacv_tpu/ops/pallas/preprocess.py: _kernel,
+// behind preprocess_fused_batch (BASELINE config 4, interleaved BGR
+// frames), and _kernel_nv, behind preprocess_fused_nv_batch (the camera
+// form: stacked NV21/NV12 buffers, decoded inside the kernel).  What they
+// compute is the same; how is not.  The TPU kernels stream every crop row
+// through VMEM and resample with banded bf16 matmuls; the NV one also
+// spreads chroma with lane rolls and repeats chroma rows with a 0/1
+// matmul, all because the TPU has no fast gather.  Here each thread
+// gathers its own taps, and the two kernels are one template that differs
+// only in how a tap is read (the Source policy below).
 //
-// Bound: bytes read.  A (N, H, W, 3) u8 batch is read once and the
-// (N, 3, oh, ow) f32 planes are written once (and, with self-computed
-// statistics, read and rewritten once more by the second launch).  There
-// are a few dozen flops per output pixel, far below what the card could do
-// with the bytes it moves.
+// Bound: bytes read.  The source is read once and the (N, 3, oh, ow) f32
+// planes are written once (and, with self-computed statistics, read and
+// rewritten once more by the second launch).  There are a few dozen flops
+// per output pixel, far below what the card could do with the bytes it
+// moves.
 //
 // What the design does about it: it reads only the source rows and columns
 // that carry a nonzero tap.  At 1080p -> 224 the taps touch 448 of the 1036
 // crop rows, and in those rows the 32-byte sectors of nearly every column,
-// so about 43% of the crop's bytes.  A whole block of outputs shares the
+// so about 43% of the crop's bytes.  An NV frame is 1.5 bytes a pixel
+// against BGR's 3: a tap reads one Y byte and one chroma pair, and the
+// pair is shared by 2 x 2 Y pixels, so the chroma rows the tapped Y rows
+// map to are read once through L1/L2.  A whole block of outputs shares the
 // rows it reads through L1/L2.  Nothing is staged in shared memory yet:
 // this first version is simple and right; making it fast is later work.
 //
 // Launch 1 (resize_kernel): one thread per output pixel (n, oy, ox), all
 // three channels.  The host turns each dense resize weight matrix into a
 // tap table: for every output row (column) a start index and K weights
-// (K = 2 linear, 4 cubic, 1 nearest).  The thread computes in f32 in the
-// reference's order: for each horizontal tap the vertical sum, then the
-// horizontal sum; then the u8 epilogue clip(floor(x + eps), 0, 255); then,
-// with static statistics, (x - mean) / (std + 1e-6).
+// (K = 2 linear, 4 cubic, 1 nearest; the NV form is linear only, as in the
+// JAX package).  The thread computes in f32 in the reference's order: for
+// each horizontal tap the vertical sum, then the horizontal sum; then the
+// u8 epilogue clip(floor(x + eps), 0, 255); then, with static statistics,
+// (x - mean) / (std + 1e-6).  An NV tap is decoded on the fly with the
+// bit-exact Q7 math (nv_decode.cuh); its chroma row comes from the
+// absolute Y row, top + ystart[oy] + ky, and its pair from the absolute
+// column, x & ~1, so any top and left parity is right.
 //
 // Launch 2 (normalize_kernel), only when a statistic is self-computed: one
 // block per (frame, channel) plane, a two-pass mean and population stddev
@@ -36,6 +48,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "block_sum.cuh"
+#include "nv_decode.cuh"
 
 namespace {
 
@@ -49,11 +64,50 @@ struct Stats {
   float std[3];
 };
 
-template <int KY, int KX>
+// Interleaved (N, h, w, 3) u8 frames; a tap reads its 3 bytes.
+struct BgrSource {
+  const uint8_t* p;  // frame 0, or frame n after frame(n)
+  int h, w;
+
+  __device__ BgrSource frame(int n) const {
+    return {p + static_cast<int64_t>(n) * h * w * 3, h, w};
+  }
+  __device__ void load(int y, int x, float c[3]) const {
+    const uint8_t* q = p + (static_cast<int64_t>(y) * w + x) * 3;
+    c[0] = __ldg(q);
+    c[1] = __ldg(q + 1);
+    c[2] = __ldg(q + 2);
+  }
+};
+
+// Stacked (N, h * 3 / 2, w) u8 NV buffers (h, w even): h Y rows, then h / 2
+// rows of chroma pairs.  A tap reads its Y byte and its pair and decodes
+// them to B, G, R (R, G, B with to_rgb).
+template <bool IS_NV12>
+struct NvSource {
+  const uint8_t* p;  // frame 0, or frame n after frame(n)
+  int h, w;          // Y plane
+  int to_rgb;
+
+  __device__ NvSource frame(int n) const {
+    return {p + static_cast<int64_t>(n) * (h / 2 * 3) * w, h, w, to_rgb};
+  }
+  __device__ void load(int y, int x, float c[3]) const {
+    const int yv = __ldg(p + static_cast<int64_t>(y) * w + x);
+    const uint8_t* pair = p + static_cast<int64_t>(h + (y >> 1)) * w + (x & ~1);
+    int b, g, r;
+    vacv::decode_q7<IS_NV12>(yv, __ldg(pair), __ldg(pair + 1), b, g, r);
+    c[0] = static_cast<float>(to_rgb ? r : b);
+    c[1] = static_cast<float>(g);
+    c[2] = static_cast<float>(to_rgb ? b : r);
+  }
+};
+
+template <class Source, int KY, int KX>
 __global__ void __launch_bounds__(kBlockX * kBlockY) resize_kernel(
-    const uint8_t* __restrict__ src, float* __restrict__ out, int h, int w,
-    int left, int ch, int top, const int* __restrict__ top_ptr, int oh,
-    int ow, const int* __restrict__ ystart, const float* __restrict__ ywt,
+    Source source, float* __restrict__ out, int left, int ch, int top,
+    const int* __restrict__ top_ptr, int oh, int ow,
+    const int* __restrict__ ystart, const float* __restrict__ ywt,
     const int* __restrict__ xstart, const float* __restrict__ xwt,
     int trunc_u8, float eps, int static_norm, Stats st) {
   const int ox = blockIdx.x * kBlockX + threadIdx.x;
@@ -64,10 +118,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) resize_kernel(
   // A runtime top comes from the device; clamp it so that a value out of
   // contract never reads outside the frame.
   int t = top_ptr != nullptr ? __ldg(top_ptr) : top;
-  t = min(max(t, 0), h - ch);
+  t = min(max(t, 0), source.h - ch);
 
-  const int64_t row_bytes = static_cast<int64_t>(w) * 3;
-  const uint8_t* frame = src + static_cast<int64_t>(n) * h * row_bytes;
+  const Source frame = source.frame(n);
   const int y0 = t + __ldg(ystart + oy);
   const int x0 = left + __ldg(xstart + ox);
 
@@ -78,14 +131,14 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) resize_kernel(
   float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f;
 #pragma unroll
   for (int kx = 0; kx < KX; ++kx) {
-    const uint8_t* col = frame + static_cast<int64_t>(x0 + kx) * 3;
     float v0 = 0.f, v1 = 0.f, v2 = 0.f;
 #pragma unroll
     for (int ky = 0; ky < KY; ++ky) {
-      const uint8_t* p = col + static_cast<int64_t>(y0 + ky) * row_bytes;
-      v0 += wy[ky] * static_cast<float>(__ldg(p));
-      v1 += wy[ky] * static_cast<float>(__ldg(p + 1));
-      v2 += wy[ky] * static_cast<float>(__ldg(p + 2));
+      float c[3];
+      frame.load(y0 + ky, x0 + kx, c);
+      v0 += wy[ky] * c[0];
+      v1 += wy[ky] * c[1];
+      v2 += wy[ky] * c[2];
     }
     const float wx = __ldg(xwt + ox * KX + kx);
     acc0 += wx * v0;
@@ -106,21 +159,6 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) resize_kernel(
   }
 }
 
-// Sum of one float per thread over the block; every thread gets the total.
-// Deterministic: fixed shuffle tree, then every thread adds the per-warp
-// sums in the same order.
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read by the previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int i = 0; i < kNormThreads / 32; ++i) total += red[i];
-  return total;
-}
-
 __global__ void __launch_bounds__(kNormThreads) normalize_kernel(
     float* __restrict__ out, int64_t plane, int have_mean, int have_std,
     Stats st) {
@@ -131,7 +169,7 @@ __global__ void __launch_bounds__(kNormThreads) normalize_kernel(
 
   float s = 0.f;
   for (int64_t i = threadIdx.x; i < plane; i += kNormThreads) s += p[i];
-  const float self_mean = block_sum(s, red) / count;
+  const float self_mean = vacv::block_sum<kNormThreads>(s, red) / count;
 
   float sd;
   if (have_std) {
@@ -142,7 +180,7 @@ __global__ void __launch_bounds__(kNormThreads) normalize_kernel(
       const float d = p[i] - self_mean;
       q += d * d;
     }
-    sd = sqrtf(block_sum(q, red) / count);
+    sd = sqrtf(vacv::block_sum<kNormThreads>(q, red) / count);
   }
   const float mu = have_mean ? st.mean[c] : self_mean;
   const float denom = sd + kNormEps;
@@ -150,28 +188,20 @@ __global__ void __launch_bounds__(kNormThreads) normalize_kernel(
     p[i] = (p[i] - mu) / denom;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch 1.  Pointers are device pointers; top_ptr may be null, and then
-// `top` is used.  Returns a cudaError_t (0 on success).
-int vacv_preprocess_resize(int device, void* stream, const void* src,
-                           void* out, int n, int h, int w, int left, int ch,
-                           int top, const void* top_ptr, int oh, int ow,
-                           const void* ystart, const void* ywt, int ky,
-                           const void* xstart, const void* xwt, int kx,
-                           int trunc_u8, float eps, int static_norm, float m0,
-                           float m1, float m2, float s0, float s1, float s2) {
+// Launch 1 for one source kind, tap counts up to MAX_K each way.
+template <int MAX_K, class Source>
+int launch_resize(int device, void* stream, Source source, void* out, int n,
+                  int left, int ch, int top, const void* top_ptr, int oh,
+                  int ow, const void* ystart, const void* ywt, int ky,
+                  const void* xstart, const void* xwt, int kx, int trunc_u8,
+                  float eps, int static_norm, Stats st) {
   cudaGetLastError();  // clear a stale error of an earlier call
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Stats st = {{m0, m1, m2}, {s0, s1, s2}};
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((ow + kBlockX - 1) / kBlockX, (oh + kBlockY - 1) / kBlockY,
                   n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* src8 = static_cast<const uint8_t*>(src);
   float* outf = static_cast<float*>(out);
   const int* tp = static_cast<const int*>(top_ptr);
   const int* ys = static_cast<const int*>(ystart);
@@ -179,11 +209,13 @@ int vacv_preprocess_resize(int device, void* stream, const void* src,
   const int* xs = static_cast<const int*>(xstart);
   const float* xw = static_cast<const float*>(xwt);
 #define VACV_RESIZE_CASE(KY, KX)                                             \
-  if (ky == KY && kx == KX) {                                                \
-    resize_kernel<KY, KX><<<grid, block, 0, s>>>(                           \
-        src8, outf, h, w, left, ch, top, tp, oh, ow, ys, yw, xs, xw,         \
-        trunc_u8, eps, static_norm, st);                                     \
-    return static_cast<int>(cudaGetLastError());                             \
+  if constexpr (KY <= MAX_K && KX <= MAX_K) {                                \
+    if (ky == KY && kx == KX) {                                              \
+      resize_kernel<Source, KY, KX><<<grid, block, 0, s>>>(                  \
+          source, outf, left, ch, top, tp, oh, ow, ys, yw, xs, xw, trunc_u8, \
+          eps, static_norm, st);                                             \
+      return static_cast<int>(cudaGetLastError());                           \
+    }                                                                        \
   }
   VACV_RESIZE_CASE(2, 2)
   VACV_RESIZE_CASE(4, 4)
@@ -196,6 +228,52 @@ int vacv_preprocess_resize(int device, void* stream, const void* src,
   VACV_RESIZE_CASE(4, 2)
 #undef VACV_RESIZE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch 1 over (n, h, w, 3) u8 BGR frames.  Pointers are device pointers;
+// top_ptr may be null, and then `top` is used.  Returns a cudaError_t (0 on
+// success).
+int vacv_preprocess_resize(int device, void* stream, const void* src,
+                           void* out, int n, int h, int w, int left, int ch,
+                           int top, const void* top_ptr, int oh, int ow,
+                           const void* ystart, const void* ywt, int ky,
+                           const void* xstart, const void* xwt, int kx,
+                           int trunc_u8, float eps, int static_norm, float m0,
+                           float m1, float m2, float s0, float s1, float s2) {
+  const BgrSource source = {static_cast<const uint8_t*>(src), h, w};
+  return launch_resize<4>(device, stream, source, out, n, left, ch, top,
+                          top_ptr, oh, ow, ystart, ywt, ky, xstart, xwt, kx,
+                          trunc_u8, eps, static_norm,
+                          Stats{{m0, m1, m2}, {s0, s1, s2}});
+}
+
+// Launch 1 over (n, h * 3 / 2, w) u8 stacked NV buffers; h is the Y
+// height, and h and w are even.  Linear taps only (ky, kx <= 2).  The rest
+// as vacv_preprocess_resize.
+int vacv_preprocess_nv_resize(int device, void* stream, const void* src,
+                              void* out, int n, int h, int w, int is_nv12,
+                              int to_rgb, int left, int ch, int top,
+                              const void* top_ptr, int oh, int ow,
+                              const void* ystart, const void* ywt, int ky,
+                              const void* xstart, const void* xwt, int kx,
+                              int trunc_u8, float eps, int static_norm,
+                              float m0, float m1, float m2, float s0, float s1,
+                              float s2) {
+  const uint8_t* p = static_cast<const uint8_t*>(src);
+  const Stats st = {{m0, m1, m2}, {s0, s1, s2}};
+  if (is_nv12) {
+    return launch_resize<2>(device, stream, NvSource<true>{p, h, w, to_rgb},
+                            out, n, left, ch, top, top_ptr, oh, ow, ystart,
+                            ywt, ky, xstart, xwt, kx, trunc_u8, eps,
+                            static_norm, st);
+  }
+  return launch_resize<2>(device, stream, NvSource<false>{p, h, w, to_rgb},
+                          out, n, left, ch, top, top_ptr, oh, ow, ystart, ywt,
+                          ky, xstart, xwt, kx, trunc_u8, eps, static_norm, st);
 }
 
 // Launch 2: normalise `planes` contiguous planes of `plane` floats in

@@ -3,11 +3,13 @@
 The counterpart of ``vacv_tpu/models/pipeline.py``.  ``Preprocessor``
 holds a declarative ``PreprocessConfig`` and runs it on a frame or a
 batch of frames.  Where the config is the reference's flagship chain
-(crop → resize → CHW f32 → normalize, BASELINE config 4) and the input
-a u8 BGR batch, the whole chain is one fused call
-(``ops/cuda/preprocess.py``): the CUDA kernel for a CUDA tensor, its
-plain PyTorch version for a CPU tensor.  Anything else runs the chain of
-plain ops frame by frame.
+(crop → resize → CHW f32 → normalize, BASELINE config 4) the whole chain
+is one fused call (``ops/cuda/preprocess.py``): over u8 BGR frames, or,
+with an NV ``color_code`` and bilinear resize, over stacked NV21/NV12
+camera buffers with the decode inside the kernel.  The fused call is the
+CUDA kernel for a CUDA tensor and its plain PyTorch version for a CPU
+tensor.  Anything else runs the chain of ops frame by frame; an NV
+chain decodes straight to CHW planes first.
 
 Devices are explicit: a tensor is processed on the device it lies on; a
 numpy input goes to the ``device`` the Preprocessor was given.
@@ -22,7 +24,10 @@ from .. import config
 from ..core.image import Image, as_tensor
 from ..core.types import ColorCode, InterMode, Layout, VRect
 from ..ops.crop import crop, crop_dynamic
-from ..ops.cuda.preprocess import INTERP_MODES, preprocess_fused_batch
+from ..ops.cuda.preprocess import (
+    INTERP_MODES, preprocess_fused_batch, preprocess_fused_nv_batch,
+)
+from ..ops.cvt_color import nv_code, nv_decode_channels
 from ..ops.dtype import as_torch_dtype
 from ..ops.normalize import normalize
 from ..ops.resize import resize
@@ -30,11 +35,19 @@ from ..ops.resize import resize
 _FUSED_INTERP = {mode: name for name, mode in INTERP_MODES.items()}
 
 
+def _decode_color(img: Image, code) -> Image:
+    """Pipeline-internal NV decode that stays planar: the channel planes
+    stack straight into a CHW Image, so no HWC interleave is made only
+    to be transposed back."""
+    return Image(torch.stack(nv_decode_channels(img.data, code), dim=0), Layout.CHW)
+
+
 @dataclass(frozen=True)
 class PreprocessConfig:
     """Declarative preprocessing recipe (all fields static)."""
 
-    # Color conversion applied first (NV input).  Not ported yet.
+    # Colour conversion applied first; the input is then the stacked
+    # (H*3//2, W) NV buffer.  NV codes only.
     color_code: ColorCode | None = None
     # Optional crop ROI in source coordinates.
     crop_rect: VRect | None = None
@@ -51,18 +64,16 @@ class PreprocessConfig:
 
 
 class Preprocessor:
-    """Runs a ``PreprocessConfig`` on HWC u8 frames.
+    """Runs a ``PreprocessConfig`` on HWC u8 frames, or on stacked
+    (H·3/2, W) u8 NV buffers when ``color_code`` is set.
 
-    ``__call__`` takes one (H, W, C) frame, ``batch`` a (N, H, W, C)
-    batch; both return the network-ready float32 tensor.
+    ``__call__`` takes one frame, ``batch`` a batch of them; both return
+    the network-ready float32 tensor.
     """
 
     def __init__(self, cfg: PreprocessConfig, device="cpu"):
         if cfg.color_code is not None:
-            raise NotImplementedError(
-                "color_code (NV camera input) is not ported yet: "
-                "ROADMAP.md queue 1 #7 (NV camera slice)"
-            )
+            nv_code(cfg.color_code)  # NotImplementedError for a non-NV code
         if cfg.warp is not None:
             raise NotImplementedError(
                 "warp is not ported yet: ROADMAP.md queue 1 #10 (warp_affine)"
@@ -71,9 +82,10 @@ class Preprocessor:
         self.device = torch.device(device)
 
     def _fused_geometry(self, shape, dtype):
-        """(left, top, cw, ch, oh, ow, interp) when the whole pipeline
-        runs as ONE fused call for frames of per-image ``shape`` (HWC),
-        else None.
+        """(nv, left, top, cw, ch, oh, ow, interp) when the whole
+        pipeline runs as ONE fused call for frames of per-image
+        ``shape`` (HWC, or (H·3/2, W) for NV input), else None.  ``nv``
+        is None for BGR input, else an (is_nv12, to_rgb) pair.
 
         Any crop that lies inside the frame is taken; there are no
         alignment or size floors.
@@ -84,9 +96,23 @@ class Preprocessor:
         interp = _FUSED_INTERP.get(InterMode(cfg.interpolation))
         if cfg.out_size is None or interp is None or cfg.out_layout != Layout.CHW:
             return None
-        if len(shape) != 3 or shape[-1] != 3 or as_torch_dtype(dtype) != torch.uint8:
+        if as_torch_dtype(dtype) != torch.uint8:
             return None
-        h, w, _ = shape
+        nv = None
+        if cfg.color_code is not None:
+            # The fused NV kernel is linear only and makes no alpha plane
+            # (vacv_tpu/models/pipeline.py:167-176).
+            is_nv12, to_rgb, alpha = nv_code(cfg.color_code)
+            if alpha or interp != "linear":
+                return None
+            nv = (is_nv12, to_rgb)
+            if len(shape) != 2 or shape[0] % 3 or shape[1] % 2:
+                return None
+            h, w = shape[0] * 2 // 3, shape[1]
+        else:
+            if len(shape) != 3 or shape[-1] != 3:
+                return None
+            h, w, _ = shape
         if cfg.crop_rect is None:
             left, top, cw, ch = 0, 0, w, h
         else:
@@ -96,12 +122,14 @@ class Preprocessor:
         ow, oh = int(cfg.out_size[0]), int(cfg.out_size[1])
         if ow <= 0 or oh <= 0:
             return None
-        return (left, top, cw, ch, oh, ow, interp)
+        return (nv, left, top, cw, ch, oh, ow, interp)
 
     def describe_route(self, shape, dtype=None, device=None) -> str:
-        """Which route a batch of per-image ``shape`` (HWC) frames takes:
-        ``"cuda_fused"`` (the CUDA kernel), ``"fused_torch"`` (its plain
-        PyTorch version, on a CPU tensor) or ``"torch_chain"``.
+        """Which route a batch of per-image ``shape`` frames (HWC, or
+        (H·3/2, W) for NV input) takes: ``"cuda_fused"`` /
+        ``"cuda_fused_nv"`` (the CUDA kernel), ``"fused_torch"`` /
+        ``"fused_nv_torch"`` (its plain PyTorch version, on a CPU tensor)
+        or ``"torch_chain"``.
 
         ``device`` is where the batch lies; None means the
         Preprocessor's own device (where a numpy batch goes)."""
@@ -109,22 +137,28 @@ class Preprocessor:
         if geom is None:
             return "torch_chain"
         dev = torch.device(device) if device is not None else self.device
-        return "cuda_fused" if dev.type == "cuda" else "fused_torch"
+        nv = "_nv" if geom[0] is not None else ""
+        return f"cuda_fused{nv}" if dev.type == "cuda" else f"fused{nv}_torch"
 
     def _run_fused(self, batch, geom, top):
         cfg = self.cfg
-        left, top0, cw, ch, oh, ow, interp = geom
+        nv, left, top0, cw, ch, oh, ow, interp = geom
         rect = VRect(left, top0, left + cw, top0 + ch)
-        return preprocess_fused_batch(
-            batch, rect, (ow, oh), top=top, mean=cfg.mean,
-            stddev=cfg.stddev, normalize=cfg.normalize, interp=interp,
-        )
+        kwargs = dict(top=top, mean=cfg.mean, stddev=cfg.stddev, normalize=cfg.normalize)
+        if nv is not None:
+            # Camera chain: decode → crop → resize → normalize in one call.
+            is_nv12, to_rgb = nv
+            return preprocess_fused_nv_batch(batch, rect, (ow, oh), is_nv12=is_nv12,
+                                             to_rgb=to_rgb, **kwargs)
+        return preprocess_fused_batch(batch, rect, (ow, oh), interp=interp, **kwargs)
 
     def _run_chain(self, frame, top):
-        """The per-image chain of plain ops (crop → resize → layout →
-        f32 → normalize)."""
+        """The per-image chain of ops ([NV decode →] crop → resize →
+        layout → f32 → normalize)."""
         cfg = self.cfg
         img = Image(frame, Layout.HWC)
+        if cfg.color_code is not None:
+            img = _decode_color(img, cfg.color_code)
         if cfg.crop_rect is not None:
             if top is None:
                 img = crop(img, cfg.crop_rect)
@@ -146,7 +180,8 @@ class Preprocessor:
         return arr if isinstance(arr, torch.Tensor) else as_tensor(arr).to(self.device)
 
     def batch(self, arr, top=None):
-        """Run the pipeline over (N, H, W, C) frames.
+        """Run the pipeline over (N, H, W, C) frames, or (N, H·3/2, W) NV
+        buffers.
 
         ``top`` optionally moves the crop rect's top at run time (a
         Python int or a 0-d integer tensor, e.g. from a tracker running
@@ -159,6 +194,5 @@ class Preprocessor:
         return torch.stack([self._run_chain(frame, top) for frame in arr])
 
     def __call__(self, arr):
-        """Run the pipeline on one (H, W, C) frame."""
+        """Run the pipeline on one (H, W, C) frame or (H·3/2, W) NV buffer."""
         return self.batch(self._to_device(arr)[None])[0]
-

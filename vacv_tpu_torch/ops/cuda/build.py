@@ -1,8 +1,10 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them by ctypes.
 
-The sources are ``vacv_tpu_torch/csrc/*.cu``.  They have a plain C
-interface, so one ``nvcc`` call compiles them into a shared library in
-seconds, with no PyTorch headers.  The library lands in
+The sources are ``vacv_tpu_torch/csrc/*.cu`` (and the ``*.cuh`` headers
+they share).  They have a plain C interface, so they need no PyTorch
+headers: one ``nvcc`` per source compiles it to an object, all started
+together, and one more links the objects into a shared library, in
+seconds.  The library lands in
 ``build/vacv_tpu_torch/`` beside the package, under a name keyed by a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the last build.  Nothing here runs at import: the first CUDA call
@@ -26,7 +28,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vacv_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -68,18 +70,30 @@ def library() -> Build:
     if not out.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{p.stem}.o" for p in srcs if p.suffix == ".cu"]
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(SRC_DIR / f"{o.stem}.cu")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for o in objs
+            ]  # all started together
+            failed = []
+            for o, proc in zip(objs, procs):
+                text, _ = proc.communicate()
+                log += f"[{o.stem}.cu]\n{text}"
+                if proc.returncode != 0:
+                    failed.append(o.stem)
+            if failed:
+                raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+            lib = Path(tmp) / "lib.so"
+            proc = subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+            os.replace(lib, out)  # atomic: a concurrent build never sees half a file
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return Build(out, log, seconds, ctypes.CDLL(str(out)))
 
 

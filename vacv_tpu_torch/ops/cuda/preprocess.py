@@ -1,23 +1,29 @@
-"""Fused crop → resize → u8 truncation → planar f32 → normalize, batched.
+"""Fused [NV decode →] crop → resize → u8 truncation → planar f32 →
+normalize, batched.
 
-The counterpart of ``vacv_tpu/ops/pallas/preprocess.py::
-preprocess_fused_batch`` (BASELINE config 4, the main path).  Given a
-(N, H, W, 3) u8 batch, a crop ``(left, top, cw, ch)`` and an output
-size, it returns (N, 3, oh, ow) f32: each crop resized separably
-(vertical taps, then horizontal), truncated to the u8 grid, and
-normalized per (frame, channel) as ``(x−μ)/(σ+1e-6)`` with self or
-static statistics.
+The counterpart of ``vacv_tpu/ops/pallas/preprocess.py``'s two entry
+points:
 
-``preprocess_fused_batch`` is the wrapper.  On a CUDA tensor it launches
-the hand-written kernel (``vacv_tpu_torch/csrc/preprocess.cu``) or
-raises; on a CPU tensor it runs ``preprocess_fused_batch_torch``, the
-plain PyTorch version beside it, which the CPU tests and
-``chip_smoke.py`` hold the kernel against.
+* ``preprocess_fused_batch`` (BASELINE config 4, the main path): given a
+  (N, H, W, 3) u8 BGR batch, a crop ``(left, top, cw, ch)`` and an output
+  size, it returns (N, 3, oh, ow) f32: each crop resized separably
+  (vertical taps, then horizontal), truncated to the u8 grid, and
+  normalized per (frame, channel) as ``(x−μ)/(σ+1e-6)`` with self or
+  static statistics.
+* ``preprocess_fused_nv_batch`` (the camera path): the same chain, linear
+  only, over a (N, H·3/2, W) u8 stacked NV21/NV12 batch, with the Q7
+  decode (``ops/cvt_color.py``) done per tap inside the kernel.
+
+Each wrapper launches the hand-written kernel
+(``vacv_tpu_torch/csrc/preprocess.cu``) on a CUDA tensor or raises; on a
+CPU tensor it runs the plain PyTorch version beside it
+(``preprocess_fused_batch_torch`` / ``preprocess_fused_nv_batch_torch``),
+which the CPU tests and ``chip_smoke.py`` hold the kernel against.
 
 The kernel reads resize weights as tap tables: for every output row
 (column) a start index and K weights, K = 2 (linear), 4 (cubic) or
 1 (nearest).  ``tap_table`` builds them from the same dense matrices the
-plain version multiplies by, and checks that they reconstruct them
+plain versions multiply by, and checks that they reconstruct them
 exactly.
 """
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from ... import config
 from ...core.types import InterMode
 from ..crop import dynamic_slice
+from ..cvt_color import yuv_to_bgr_q7
 from ..normalize import normalize_planes
 from ..resize import (
     _cubic_weights, _linear_weights, _nearest_weights, u8_epilogue, u8_eps,
@@ -108,27 +115,67 @@ def _static_stats(v):
     return tuple(float(x) for x in arr[:3])
 
 
-def _geometry(batch, crop_rect, out_size, interp, top):
-    """(n, h, w, left, top, cw, ch, oh, ow), or ValueError."""
-    if batch.dtype != torch.uint8 or batch.ndim != 4 or batch.shape[-1] != 3:
-        raise ValueError("fused preprocess needs (N, H, W, 3) uint8")
-    if interp not in INTERP_MODES:
-        raise ValueError(f"interp must be one of {tuple(INTERP_MODES)}, got {interp!r}")
+def _crop_geometry(h, w, crop_rect, out_size, top):
+    """(left, top, cw, ch, oh, ow) of a crop inside an h×w frame, or
+    ValueError."""
     if isinstance(top, torch.Tensor) and (
         top.numel() != 1 or top.is_floating_point() or top.is_complex()
     ):
         raise ValueError("runtime top must be a 1-element integer tensor")
-    n, h, w, _ = batch.shape
     if crop_rect is None:
-        left, top, cw, ch = 0, 0, w, h
+        left, top0, cw, ch = 0, 0, w, h
     else:
-        left, top, cw, ch = crop_rect.int_bounds()
+        left, top0, cw, ch = crop_rect.int_bounds()
     ow, oh = int(out_size[0]), int(out_size[1])
     if left < 0 or cw <= 0 or ch <= 0 or left + cw > w or ch > h:
         raise ValueError("crop rect outside the frame")
     if oh <= 0 or ow <= 0:
         raise ValueError(f"empty output size {out_size}")
-    return n, h, w, left, top, cw, ch, oh, ow
+    return left, top0, cw, ch, oh, ow
+
+
+def _geometry(batch, crop_rect, out_size, interp, top):
+    """(n, h, w, left, top, cw, ch, oh, ow) of a BGR batch, or ValueError."""
+    if batch.dtype != torch.uint8 or batch.ndim != 4 or batch.shape[-1] != 3:
+        raise ValueError("fused preprocess needs (N, H, W, 3) uint8")
+    if interp not in INTERP_MODES:
+        raise ValueError(f"interp must be one of {tuple(INTERP_MODES)}, got {interp!r}")
+    n, h, w, _ = batch.shape
+    return (n, h, w) + _crop_geometry(h, w, crop_rect, out_size, top)
+
+
+def _nv_geometry(batch, crop_rect, out_size, top):
+    """(n, h, w, left, top, cw, ch, oh, ow) of a stacked NV batch (h the
+    Y height), or ValueError."""
+    if batch.dtype != torch.uint8 or batch.ndim != 3:
+        raise ValueError("fused NV preprocess needs (N, H*3//2, W) uint8")
+    n, hb, w = batch.shape
+    if hb % 3 or w % 2:
+        raise ValueError("NV buffer needs H*3//2 rows (a multiple of 3) and an even width")
+    h = hb * 2 // 3
+    return (n, h, w) + _crop_geometry(h, w, crop_rect, out_size, top)
+
+
+def _clamped_top(top, top0, h, ch, device):
+    """The crop top clamped to [0, h - ch], as the kernel clamps it: an
+    int, or a 0-d int64 tensor on ``device`` for a tensor ``top``."""
+    if isinstance(top, torch.Tensor):
+        return torch.clamp(top.reshape(()).to(device=device, dtype=torch.int64), 0, h - ch)
+    return min(max(top0 if top is None else int(top), 0), h - ch)
+
+
+def _resample(planes, oh, ow, interp, trunc_u8, normalize, mean, stddev):
+    """(N, 3, ch, cw) f32 crop planes → resize (vertical pass first) → u8
+    epilogue → normalize: the shared tail of both plain versions."""
+    ch, cw = planes.shape[-2:]
+    wy = torch.from_numpy(_resize_weights(ch, oh, interp)).to(planes.device)
+    wx = torch.from_numpy(_resize_weights(cw, ow, interp)).to(planes.device)
+    out = torch.matmul(torch.matmul(wy, planes), wx.T)
+    if trunc_u8:
+        out = u8_epilogue(out, INTERP_MODES[interp])
+    if normalize:
+        out = normalize_planes(out, _static_stats(mean), _static_stats(stddev))
+    return out.contiguous()
 
 
 def preprocess_fused_batch_torch(
@@ -147,46 +194,73 @@ def preprocess_fused_batch_torch(
     dense weights through ``torch.matmul`` (vertical pass first), the u8
     epilogue, then normalization.  Runs on any device."""
     n, h, w, left, top0, cw, ch, oh, ow = _geometry(batch, crop_rect, out_size, interp, top)
-    # The top is clamped to [0, h - ch], as the kernel clamps it.
-    if isinstance(top, torch.Tensor):
-        top0 = torch.clamp(top.reshape(()).to(device=batch.device, dtype=torch.int64), 0, h - ch)
-    else:
-        top0 = min(max(top0 if top is None else int(top), 0), h - ch)
-    rows = dynamic_slice(batch, 1, top0, ch)
+    rows = dynamic_slice(batch, 1, _clamped_top(top, top0, h, ch, batch.device), ch)
     planes = rows[:, :, left : left + cw, :].permute(0, 3, 1, 2).to(torch.float32)
-    wy = torch.from_numpy(_resize_weights(ch, oh, interp)).to(batch.device)
-    wx = torch.from_numpy(_resize_weights(cw, ow, interp)).to(batch.device)
-    out = torch.matmul(torch.matmul(wy, planes), wx.T)
-    if trunc_u8:
-        out = u8_epilogue(out, INTERP_MODES[interp])
-    if normalize:
-        out = normalize_planes(out, _static_stats(mean), _static_stats(stddev))
-    return out.contiguous()
+    return _resample(planes, oh, ow, interp, trunc_u8, normalize, mean, stddev)
+
+
+def preprocess_fused_nv_batch_torch(
+    batch,
+    crop_rect=None,
+    out_size=(224, 224),
+    *,
+    is_nv12=False,
+    to_rgb=False,
+    top=None,
+    mean=None,
+    stddev=None,
+    normalize=True,
+    trunc_u8=True,
+):
+    """Plain PyTorch version of the fused NV kernel: gather the crop's Y
+    rows and, for each, its chroma row (from the absolute row, so any
+    top parity is right), decode with torch int32 ops, then the same
+    tail as ``preprocess_fused_batch_torch``, linear only.  Only the
+    crop is decoded.  Runs on any device."""
+    n, h, w, left, top0, cw, ch, oh, ow = _nv_geometry(batch, crop_rect, out_size, top)
+    dev = batch.device
+    rows = torch.arange(ch, device=dev) + _clamped_top(top, top0, h, ch, dev)
+    cols = torch.arange(left, left + cw, device=dev)
+    pair = cols - cols % 2  # a pixel's chroma pair starts at the even column
+    y = batch.index_select(1, rows).index_select(2, cols).to(torch.int32)
+    chroma = batch.index_select(1, h + rows // 2)
+    first = chroma.index_select(2, pair).to(torch.int32)
+    second = chroma.index_select(2, pair + 1).to(torch.int32)
+    b, g, r = yuv_to_bgr_q7(y, first, second, is_nv12)
+    planes = torch.stack((r, g, b) if to_rgb else (b, g, r), dim=1).to(torch.float32)
+    return _resample(planes, oh, ow, "linear", trunc_u8, normalize, mean, stddev)
 
 
 @functools.lru_cache(maxsize=1)
 def _entry_points():
     lib = build.library().lib
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    resize = lib.vacv_preprocess_resize
-    resize.restype = i
-    resize.argtypes = [
-        i, p, p, p,                  # device, stream, src, out
-        i, i, i, i, i, i, p,         # n, h, w, left, ch, top, top_ptr
+    tail = [
+        i, i, i, p,                  # left, ch, top, top_ptr
         i, i,                        # oh, ow
         p, p, i, p, p, i,            # ystart, ywt, ky, xstart, xwt, kx
         i, f, i,                     # trunc_u8, eps, static_norm
         f, f, f, f, f, f,            # mean[3], std[3]
     ]
+    resize = lib.vacv_preprocess_resize
+    resize.restype = i
+    resize.argtypes = [i, p, p, p, i, i, i] + tail   # device, stream, src, out, n, h, w
+    nv_resize = lib.vacv_preprocess_nv_resize
+    nv_resize.restype = i
+    # device, stream, src, out, n, h, w, is_nv12, to_rgb
+    nv_resize.argtypes = [i, p, p, p, i, i, i, i, i] + tail
     norm = lib.vacv_preprocess_normalize
     norm.restype = i
     norm.argtypes = [i, p, p, i, ctypes.c_longlong, i, i, f, f, f, f, f, f]
-    return lib, resize, norm
+    return lib, resize, nv_resize, norm
 
 
-def _launch(batch, crop_rect, out_size, top, mean, stddev, normalize,
-            trunc_u8, interp):
-    n, h, w, left, top0, cw, ch, oh, ow = _geometry(batch, crop_rect, out_size, interp, top)
+def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
+            name):
+    """Launch 1 (resize; the NV entry when ``nv`` is an (is_nv12, to_rgb)
+    pair) and, for self statistics, launch 2; count one launch of
+    ``name``."""
+    n, h, w, left, top0, cw, ch, oh, ow = geom
     if not batch.is_contiguous():
         raise ValueError("fused preprocess kernel needs a contiguous batch")
     if n > _MAX_FRAMES:
@@ -201,33 +275,33 @@ def _launch(batch, crop_rect, out_size, top, mean, stddev, normalize,
         # so a moving ROI never synchronises the host.
         top_dev = top.reshape(()).to(device=dev, dtype=torch.int32)
         top_ptr = top_dev.data_ptr()
-    elif top is not None:
-        top0 = int(top)
-    top0 = min(max(top0, 0), h - ch)
+    else:
+        top0 = _clamped_top(top, top0, h, ch, dev)
     ys, yw = _device_taps(ch, oh, interp, dev)
     xs, xw = _device_taps(cw, ow, interp, dev)
     mean_s, std_s = _static_stats(mean), _static_stats(stddev)
     static_norm = bool(normalize) and mean_s is not None and std_s is not None
     zeros = (0.0, 0.0, 0.0)
-    lib, resize, norm = _entry_points()
+    lib, resize, nv_resize, norm = _entry_points()
+    entry, source_args = (resize, ()) if nv is None else (nv_resize, tuple(map(int, nv)))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = resize(
-        dev.index, stream, batch.data_ptr(), out.data_ptr(),
-        n, h, w, left, ch, top0, top_ptr, oh, ow,
+    rc = entry(
+        dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *source_args,
+        left, ch, top0, top_ptr, oh, ow,
         ys.data_ptr(), yw.data_ptr(), yw.shape[1],
         xs.data_ptr(), xw.data_ptr(), xw.shape[1],
         int(trunc_u8), u8_eps(INTERP_MODES[interp]), int(static_norm),
         *(mean_s if static_norm else zeros), *(std_s if static_norm else zeros),
     )
-    build.check(lib, rc, "preprocess resize kernel")
+    build.check(lib, rc, f"{name} resize kernel")
     if normalize and not static_norm:
         rc = norm(
             dev.index, stream, out.data_ptr(), n * 3, oh * ow,
             int(mean_s is not None), int(std_s is not None),
             *(mean_s or zeros), *(std_s or zeros),
         )
-        build.check(lib, rc, "preprocess normalize kernel")
-    config.record_kernel("preprocess_fused")
+        build.check(lib, rc, f"{name} normalize kernel")
+    config.record_kernel(name)
     return out
 
 
@@ -260,9 +334,52 @@ def preprocess_fused_batch(
     kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
                   trunc_u8=trunc_u8, interp=interp)
     if batch.device.type == "cuda":
-        return _launch(batch, crop_rect, out_size, **kwargs)
+        geom = _geometry(batch, crop_rect, out_size, interp, top)
+        return _launch(batch, geom, None, name="preprocess_fused", **kwargs)
     if batch.device.type != "cpu":
         raise ValueError(f"no fused preprocess route for device {batch.device}")
     out = preprocess_fused_batch_torch(batch, crop_rect, out_size, **kwargs)
     config.record_kernel("preprocess_fused_torch")
+    return out
+
+
+def preprocess_fused_nv_batch(
+    batch,
+    crop_rect=None,
+    out_size=(224, 224),
+    *,
+    is_nv12=False,
+    to_rgb=False,
+    top=None,
+    mean=None,
+    stddev=None,
+    normalize=True,
+    trunc_u8=True,
+):
+    """Fused NV decode → crop → bilinear resize → CHW → f32 → normalize
+    over a (N, H·3/2, W) u8 stacked NV batch (Y over interleaved VU:
+    NV21 by default, ``is_nv12=True`` for UV order).
+
+    Returns (N, 3, oh, ow) f32: B, G, R planes (R, G, B with
+    ``to_rgb``).  ``crop_rect``, ``top``, ``mean``, ``stddev``,
+    ``normalize`` and ``trunc_u8`` as in ``preprocess_fused_batch``; the
+    resize is the Q11 bilinear one.  Any crop inside the frame is taken.
+
+    A CUDA batch launches the kernel (counted as
+    ``"preprocess_fused_nv"``) or raises; a CPU batch runs the plain
+    version (counted as ``"preprocess_fused_nv_torch"``).  Raises
+    ValueError for inputs the kernel does not take (not u8 rank 3, rows
+    not a multiple of 3, an odd width, a crop outside the frame).
+    """
+    kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
+                  trunc_u8=trunc_u8)
+    if batch.device.type == "cuda":
+        geom = _nv_geometry(batch, crop_rect, out_size, top)
+        return _launch(batch, geom, (is_nv12, to_rgb), interp="linear",
+                       name="preprocess_fused_nv", **kwargs)
+    if batch.device.type != "cpu":
+        raise ValueError(f"no fused NV preprocess route for device {batch.device}")
+    out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, is_nv12=is_nv12,
+                                          to_rgb=to_rgb, **kwargs)
+    config.record_kernel("preprocess_fused_nv_torch")
     return out

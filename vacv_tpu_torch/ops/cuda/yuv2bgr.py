@@ -1,0 +1,69 @@
+"""NV12/NV21 → B, G, R u8 planes: the yuv2bgr kernel's wrapper.
+
+The counterpart of ``vacv_tpu/ops/pallas/yuv2bgr.py::nv_to_bgr_pallas``.
+``nv_to_bgr`` launches the hand-written kernel
+(``vacv_tpu_torch/csrc/yuv2bgr.cu``) on CUDA tensors, counted as
+``"yuv2bgr"``, or raises; on CPU tensors it runs the plain version
+``ops/cvt_color.py::nv_to_bgr_planes_torch``, counted as
+``"yuv2bgr_torch"``.  Both are bit-exact Q7 integer math.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ... import config
+from ..cvt_color import check_nv_planes, nv_to_bgr_planes_torch
+from . import build
+
+_MAX_ROWS = 65535  # the kernel's grid y dimension
+
+
+@functools.lru_cache(maxsize=1)
+def _entry_points():
+    lib = build.library().lib
+    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    fn = lib.vacv_yuv2bgr
+    fn.restype = i
+    # device, stream, y, y_stride, vu, vu_stride, out, h, w, is_nv12
+    fn.argtypes = [i, p, p, ll, p, ll, p, i, i, i]
+    return lib, fn
+
+
+def _launch(y_plane, vu_plane, is_nv12):
+    check_nv_planes(y_plane, vu_plane)
+    if y_plane.device != vu_plane.device:
+        raise ValueError("Y and VU planes lie on different devices")
+    if y_plane.stride(1) != 1 or vu_plane.stride(1) != 1:
+        raise ValueError("yuv2bgr kernel needs row-contiguous Y and VU planes")
+    h, w = y_plane.shape
+    if h > _MAX_ROWS:
+        raise ValueError(f"yuv2bgr kernel takes at most {_MAX_ROWS} rows")
+    dev = y_plane.device
+    out = torch.empty((3, h, w), dtype=torch.uint8, device=dev)
+    if h and w:
+        lib, fn = _entry_points()
+        rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
+                y_plane.data_ptr(), y_plane.stride(0),
+                vu_plane.data_ptr(), vu_plane.stride(0),
+                out.data_ptr(), h, w, int(is_nv12))
+        build.check(lib, rc, "yuv2bgr kernel")
+        config.record_kernel("yuv2bgr")
+    return out[0], out[1], out[2]
+
+
+def nv_to_bgr(y_plane, vu_plane, *, is_nv12: bool):
+    """(b, g, r) u8 planes from Y (h, w) + interleaved VU (⌈h/2⌉, w).
+
+    Raises ValueError for planes the kernel does not take (not u8, an
+    odd width, a VU plane shorter than ⌈h/2⌉ rows, rows that are not
+    contiguous)."""
+    if y_plane.device.type == "cuda":
+        return _launch(y_plane, vu_plane, is_nv12)
+    if y_plane.device.type != "cpu":
+        raise ValueError(f"no yuv2bgr route for device {y_plane.device}")
+    out = nv_to_bgr_planes_torch(y_plane, vu_plane, is_nv12=is_nv12)
+    config.record_kernel("yuv2bgr_torch")
+    return out

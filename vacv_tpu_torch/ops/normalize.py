@@ -8,14 +8,17 @@ semantics (``normalize_naive.cpp:7-90``, ``normalize.cpp:84-120``):
   around the image's own mean;
 * the epsilon lives in the denominator: ``(x-μ)/(σ+1e-6)``.
 
-The dispatcher ``normalize`` routes to ``normalize_torch``.  The
-standalone normalize kernel (``vacv_tpu/ops/pallas/normalize.py``) is
-not ported yet; the fused preprocess kernel normalizes in its own pass.
+The dispatcher ``normalize`` routes CHW float self-stats inputs to the
+standalone normalize kernel (``ops/cuda/normalize.py``, the counterpart
+of ``vacv_tpu/ops/pallas/normalize.py``) and everything else to
+``normalize_torch``; the fused preprocess kernels normalize in their own
+pass.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import config
 from ..core.image import Image, as_image
 from ..core.types import Layout
 
@@ -81,8 +84,30 @@ def normalize(src, mean=None, stddev=None) -> Image:
     Parity: ``va_cv::normalize`` (cv.h:104-106).  When ``mean`` /
     ``stddev`` are None they are computed from the image itself
     (the reference's empty-tensor convention).
+
+    Routing keeps the JAX package's rule (vacv_tpu/ops/normalize.py:
+    70-81, measured on a TPU): under the ``auto`` backend a rank-3 CHW
+    float image with both stats self-computed goes to the standalone
+    normalize kernel's wrapper (``ops/cuda/normalize.py``: the CUDA
+    kernel on a CUDA tensor, ``normalize_torch`` on a CPU tensor);
+    everything else runs ``normalize_torch``.
     """
-    return normalize_torch(src, mean, stddev)
+    img = as_image(src)
+    if (
+        config.use_fused()
+        and mean is None
+        and stddev is None
+        and img.data.ndim == 3
+        and img.layout == Layout.CHW
+        and img.data.dtype != torch.uint8
+    ):
+        from .cuda.normalize import normalize_fused
+
+        # The kernel reads f32: other types convert first, as
+        # normalize_torch converts them.
+        planes = img.data.to(torch.float32).contiguous()
+        return img.with_data(normalize_fused(planes))
+    return normalize_torch(img, mean, stddev)
 
 
 def normalize_torch(src, mean=None, stddev=None) -> Image:
