@@ -18,13 +18,26 @@ Phases, each printed as it runs:
    kernel (32 stacked NV buffers of 1620x1920, the same crop; NV21, NV12,
    RGB, every stats mode, int and device tops) and odd frames; yuv2bgr
    (bit-exact, 1080p and odd heights); normalize ((3, 1080, 1920) f32 and
-   u8, (3, 224, 224));
+   u8, (3, 224, 224)); the warp kernel at BASELINE config 5's geometry
+   (two 2560x1440 frames, the config-5 crop, its rotated matrix to
+   1216x684; u8 bit-exact, f32 within 5e-3) and at 360x640 and 215x283
+   over every interpolation, border, border value and type, four
+   matrices, and the flags through ``warp_affine``; the correlation kernel
+   against ``conv2d`` (TF32 off), within 1e-5 of the largest response, at
+   four shapes;
 4. main paths, each with the launch counters reset just before and read
    just after: config 4 (``Preprocessor.batch`` on three batches with a
    moving crop top held on the device), the fused NV camera path (the
    same, on NV21 buffers), the NV chain (a cubic NV config: yuv2bgr and
-   normalize once per frame) and config 2 (``cvt_color`` → CHW → f32);
-   each result is held against the plain PyTorch chain;
+   normalize once per frame), config 2 (``cvt_color`` → CHW → f32),
+   config 5 (``Preprocessor.batch`` on two batches of two 2560x1440
+   frames with a device crop top: one warp launch per batch, one
+   normalize per frame) and the tracking flow of
+   ``examples/camera_tracking.py`` (six 720x1280 NV21 frames with a
+   drifting 48x48 target: ``cvt_color`` → ``match_template`` →
+   ``min_max_loc`` → a device top → the fused NV route; the target found
+   within 2 px on every frame); each result is held against the plain
+   PyTorch chain;
 5. time: each kernel against its plain version with CUDA events, in
    turns, and the main paths.
 
@@ -37,6 +50,7 @@ import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 BATCH, H, W = 32, 1080, 1920
@@ -54,7 +68,21 @@ KERNELS = {
     "yuv2bgr": ("vacv_tpu_torch/csrc/yuv2bgr.cu", "vacv_tpu/ops/pallas/yuv2bgr.py:37"),
     "normalize_fused": ("vacv_tpu_torch/csrc/normalize.cu",
                         "vacv_tpu/ops/pallas/normalize.py:71"),
+    "warp_affine": ("vacv_tpu_torch/csrc/warp_affine.cu",
+                    "vacv_tpu/ops/pallas/warp_affine.py:365"),
+    "match_corr": ("vacv_tpu_torch/csrc/match_template.cu",
+                   "vacv_tpu/ops/pallas/match_template.py:71"),
 }
+# BASELINE config 5 (benchmarks/baseline_configs.py:148-186): 2560x1440
+# frames, crop (64, 36)-(2496, 1404), a rotated warp to 1216x684, 224 out,
+# two frames per device.
+H5, W5, BATCH5 = 1440, 2560, 2
+RECT5 = (64, 36, 2496, 1404)
+M5 = ((0.9, 0.03, 40.0), (-0.03, 0.9, 25.0))
+WARP5 = (1216, 684)  # (w, h)
+# The tracking flow of examples/camera_tracking.py.
+TRACK_H, TRACK_W, TRACK_ROI, TARGET = 720, 1280, 320, 48
+FP32_TFLOPS = 67.0  # H100 SXM data sheet, f32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -288,6 +316,224 @@ def phase_compare_normalize() -> float:
         err = check(f"normalize {dtype} {shape}", got, want, "norm")
         head = err if head is None else head
     return head
+
+
+def warp_pair(planes, minv, h_out, w_out, **kw):
+    """(flips, max-abs) of the warp kernel against its plain version on
+    the same CUDA planes; u8 must be bit-exact, f32 within 5e-3."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
+
+    got = warp_planes_batch(planes, minv, h_out, w_out, **kw)
+    want = warp_planes_batch_torch(planes, minv, h_out, w_out, **kw)
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and got.dtype == want.dtype, f"warp {kw}: shape or type")
+    d = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    flips, max_abs = int((d > 0).sum().item()), d.max().item()
+    if got.dtype == torch.uint8:
+        require(flips == 0, f"warp {tuple(planes.shape)} {kw}: {flips} u8 values differ")
+    else:
+        require(bool(torch.isfinite(got).all()) and max_abs <= 5e-3,
+                f"warp {tuple(planes.shape)} {kw}: max_abs {max_abs}")
+    return flips, max_abs
+
+
+def phase_compare_warp() -> float:
+    """The warp kernel at config 5's geometry, then a sweep of every
+    interpolation, border, border value, type and four matrices at
+    360x640 and 215x283, then the flags through ``warp_affine``."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch import config
+
+    left, top, right, bottom = RECT5
+    batch = make_batch(BATCH5, H5, W5, seed=50)
+    crop = batch[:, top:bottom, left:right].permute(0, 3, 1, 2)  # a strided view
+    minv = vt.invert_affine(np.asarray(M5, np.float32))
+    worst = 0.0
+    for dtype in (torch.uint8, torch.float32):
+        flips, max_abs = warp_pair(crop.to(dtype), minv, WARP5[1], WARP5[0])
+        log(f"[compare] warp config 5 {dtype} {BATCH5}x3x{bottom - top}x{right - left} -> "
+            f"{WARP5[1]}x{WARP5[0]}: flipped values {flips}, max_abs={max_abs}")
+        worst = max(worst, max_abs)
+    del batch, crop
+    for h, w in ((360, 640), (215, 283)):
+        planes = make_batch(2, h, w, seed=h).permute(0, 3, 1, 2)
+        h_out, w_out = h * 4 // 5, w * 4 // 5
+        matrices = {
+            "rotation": [[0.9, 0.03, 4.0], [-0.03, 0.9, 2.5]],
+            "rot30": vt.get_rotation_matrix_2d(vt.VPoint(w / 2, h / 2), 30.0, 1.0),
+            "axis_flip_scale": [[-1.25, 0.0, w * 1.1], [0.0, 0.75, 10.0]],
+            "mostly_out": [[0.5, 0.0, w * 0.8], [0.0, 0.5, h * 0.8]],
+        }
+        for name, m in matrices.items():
+            inv = vt.invert_affine(np.asarray(m, np.float32))
+            runs, flips, max_abs = 0, 0, 0.0
+            for dtype in (torch.uint8, torch.float32):
+                src = planes.to(dtype)
+                for interp in (vt.INTER_LINEAR, vt.INTER_NEAREST, vt.INTER_CUBIC):
+                    for border in (vt.BORDER_CONSTANT, vt.BORDER_REPLICATE, vt.BORDER_REFLECT,
+                                   vt.BORDER_WRAP, vt.BORDER_REFLECT_101):
+                        for bv in (0.0, 17.0):
+                            f, e = warp_pair(src, inv, h_out, w_out, interp=interp,
+                                             border=border, border_value=bv)
+                            runs, flips, max_abs = runs + 1, flips + f, max(max_abs, e)
+            log(f"[compare] warp {h}x{w} {name}: {runs} interp x border x value x type "
+                f"cases, u8 bit-exact, f32 max_abs={max_abs}")
+    img = make_batch(1, 360, 640, seed=51)[0]
+    m = np.asarray(matrices["rot30"], np.float32)
+    flags = [
+        ((m, (512, 288), vt.INTER_LINEAR, vt.BORDER_TRANSPARENT, 9.0), {}),
+        ((m, (512, 288)), dict(edge_mode="vacv")),
+        ((vt.invert_affine(m), (512, 288), int(vt.INTER_CUBIC) | int(vt.WARP_INVERSE_MAP)), {}),
+        ((m, (512, 288), vt.INTER_NEAREST, int(vt.BORDER_REFLECT) | int(vt.BORDER_ISOLATED),
+          vt.VScalar(3.0)), {}),
+    ]
+    for dtype in (torch.uint8, torch.float32, torch.float16):
+        for args, kw in flags:
+            got = vt.warp_affine(img.to(dtype), *args, **kw).data
+            with config.backend("torch"):
+                want = vt.warp_affine(img.to(dtype), *args, **kw).data
+            torch.cuda.synchronize()
+            require(torch.equal(got, want) if dtype == torch.uint8 else
+                    (got.float() - want.float()).abs().max().item() <= 5e-3,
+                    f"warp_affine flags {dtype} {args[2:]} {kw}")
+    log("[compare] warp_affine flags (TRANSPARENT, vacv edge, WARP_INVERSE_MAP, ISOLATED, "
+        "VScalar) on an HWC image, u8/f32/f16: held to the plain gather")
+    return worst
+
+
+def phase_compare_corr() -> float:
+    """The correlation kernel against conv2d in f32 (TF32 off)."""
+    from vacv_tpu_torch.ops.cuda.match_template import corr_planes, corr_planes_torch
+
+    head = None
+    for label, xs, ks, frac in [
+        ("720x1280 u8-derived, 3 ch, 48x48", (3, 720, 1280), (3, 48, 48), False),
+        ("360x640, 3 ch, 32x32", (3, 360, 640), (3, 32, 32), False),
+        ("360x640 fractional f32, 3 ch, 24x20", (3, 360, 640), (3, 24, 20), True),
+        ("720x1280, 1 ch, 7x129", (1, 720, 1280), (1, 7, 129), False),
+    ]:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(xs[1] + ks[2])
+        if frac:
+            x = torch.rand(xs, generator=g, device="cuda") * 2 - 1
+            k = torch.rand(ks, generator=g, device="cuda") * 2 - 1
+        else:
+            x = torch.randint(0, 256, xs, generator=g, device="cuda").to(torch.float32)
+            k = torch.randint(0, 256, ks, generator=g, device="cuda").to(torch.float32)
+        got, want = corr_planes(x, k), corr_planes_torch(x, k)
+        exact = torch.nn.functional.conv2d(x.double()[None], k.double()[None])[0, 0]
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and bool(torch.isfinite(got).all()), f"corr {label}")
+        scale = want.abs().max().item()
+        max_abs = (got - want).abs().max().item()
+        log(f"[compare] corr {label}: max_abs={max_abs} rel={max_abs / scale} "
+            f"(vs f64: kernel {(got.double() - exact).abs().max().item() / scale}, "
+            f"conv2d {(want.double() - exact).abs().max().item() / scale})")
+        require(max_abs <= 1e-5 * scale, f"corr {label}: relative error {max_abs / scale}")
+        head = max_abs if head is None else head
+    return head
+
+
+def phase_main_config5() -> dict:
+    """BASELINE config 5: crop → one warp over the batch → per-frame
+    resize → CHW f32 → normalize, the crop top moving on the device."""
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.core.types import VRect
+    from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+
+    pre = Preprocessor(PreprocessConfig(crop_rect=VRect(*RECT5), warp=(M5, WARP5),
+                                        out_size=(OUT, OUT)), device="cuda")
+    route = pre.describe_route((H5, W5, 3), torch.uint8)
+    require(route == "cuda_warp", f"config 5 route is {route}")
+    batches = [make_batch(BATCH5, H5, W5, seed=60 + i) for i in range(2)]
+    tops = [torch.tensor(t, dtype=torch.int32, device="cuda") for t in (36, 30)]
+    config.reset_kernel_counts()
+    outs = [pre.batch(b, top=t) for b, t in zip(batches, tops)]
+    torch.cuda.synchronize()
+    names = ("warp_affine", "normalize_fused", "warp_affine_torch", "normalize_fused_torch")
+    launches = {k: config.kernel_count(k) for k in names}
+    log(f"[main] config 5 route={route} launches={launches} for 2 batches of {BATCH5}")
+    require(launches == {"warp_affine": 2, "normalize_fused": 2 * BATCH5,
+                         "warp_affine_torch": 0, "normalize_fused_torch": 0},
+            f"config 5 launches {launches}")
+    with config.backend("torch"):
+        require(pre.describe_route((H5, W5, 3)) == "torch_chain", "torch backend, config 5")
+        refs = [pre.batch(b, top=t) for b, t in zip(batches, tops)]
+    hold_to_chain("config 5", outs, refs, (BATCH5, 3, OUT, OUT))
+    return launches
+
+
+def tracking_stream(n=6, h=TRACK_H, w=TRACK_W, seed=3):
+    """n stacked NV21 frames (on the card) with a bright 48x48 target
+    drifting down and right, the target (BGR u8, on the card) and its
+    true (x, y) per frame; the NV21 encoding is the reference's Q14
+    integer one (image_util.cpp:3-41)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 200, (h, w, 3), dtype=np.uint8)
+    target = rng.integers(180, 256, (TARGET, TARGET, 3), dtype=np.uint8)
+    frames, truth = [], []
+    for f in range(n):
+        bgr = base.copy()
+        ty, tx = 80 + 56 * f, 600 + 8 * f
+        bgr[ty:ty + TARGET, tx:tx + TARGET] = target
+        b, g, r = (bgr[..., i].astype(np.uint32) for i in range(3))
+        y = (b * 1868 + g * 9617 + r * 4899) >> 14
+        u = ((b[::2, ::2] - y[::2, ::2]) * np.uint32(9241) + np.uint32(128 << 14)) >> 14
+        v = ((r[::2, ::2] - y[::2, ::2]) * np.uint32(11682) + np.uint32(128 << 14)) >> 14
+        vu = np.empty((h // 2, w), np.uint8)
+        vu[:, 0::2], vu[:, 1::2] = v.astype(np.uint8), u.astype(np.uint8)
+        frames.append(torch.from_numpy(np.concatenate([y.astype(np.uint8), vu])).cuda())
+        truth.append((tx, ty))
+    return frames, torch.from_numpy(target).cuda(), truth
+
+
+def tracking_pipeline():
+    """One step of the tracking flow: (frame → (score, x, y, top, net
+    input)), all on the device."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+
+    pre = Preprocessor(PreprocessConfig(
+        color_code=vt.COLOR_YUV2BGR_NV21, crop_rect=vt.VRect(0, 0, TRACK_W, TRACK_ROI),
+        out_size=(OUT, OUT)), device="cuda")
+    route = pre.describe_route((TRACK_H * 3 // 2, TRACK_W), torch.uint8)
+    require(route == "cuda_fused_nv", f"tracking preprocess route is {route}")
+
+    def step(nv, target):
+        bgr = vt.cvt_color(nv, vt.COLOR_YUV2BGR_NV21)
+        resp = vt.match_template(bgr, target, vt.TM_CCOEFF_NORMED)
+        _, score, _, (x, y) = vt.min_max_loc(resp)
+        top = torch.clamp(y - (TRACK_ROI - TARGET) // 2, 0, TRACK_H - TRACK_ROI)
+        return score, x, y, top, pre.batch(nv[None], top=top)
+
+    return step
+
+
+def phase_main_tracking() -> dict:
+    """The camera-tracking flow: six frames, counters reset just before."""
+    from vacv_tpu_torch import config
+
+    frames, target, truth = tracking_stream()
+    step = tracking_pipeline()
+    config.reset_kernel_counts()
+    outs = [step(nv, target) for nv in frames]
+    torch.cuda.synchronize()
+    names = ("yuv2bgr", "match_corr", "preprocess_fused_nv")
+    launches = {k: config.kernel_count(k) for k in names}
+    log(f"[main] tracking launches={launches} for {len(frames)} frames")
+    require(launches == dict.fromkeys(names, len(frames)), f"tracking launches {launches}")
+    require(all(config.kernel_count(f"{k}_torch") == 0 for k in names),
+            "tracking fell back to a plain version")
+    with config.backend("torch"):
+        refs = [step(nv, target) for nv in frames]
+    for i, ((score, x, y, top, net), (tx, ty), ref) in enumerate(zip(outs, truth, refs)):
+        log(f"[main] tracking frame {i}: target at ({x.item()}, {y.item()}), truth ({tx}, {ty}), "
+            f"score={score.item():.4f}, roi top={top.item()}; plain chain "
+            f"({ref[1].item()}, {ref[2].item()}) score={ref[0].item():.4f}")
+        require(abs(x.item() - tx) <= 2 and abs(y.item() - ty) <= 2, "tracker lost the target")
+        require(top.item() == ref[3].item(), "tracking top differs from the plain chain's")
+        hold_to_chain(f"tracking frame {i}", [net], [ref[4]], (1, 3, OUT, OUT))
+    return launches
 
 
 def phase_main_path() -> int:
@@ -568,6 +814,75 @@ def phase_time_nv(card: str) -> dict:
     return times
 
 
+def phase_time_warp_corr(card: str) -> dict:
+    """The warp and correlation kernels against their plain versions, and
+    the config-5 and tracking main paths.  Returns {name: (kernel ms,
+    plain ms)}."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch.core.types import VRect
+    from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+    from vacv_tpu_torch.ops.cuda.match_template import corr_planes, corr_planes_torch
+    from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
+
+    times = {}
+    left, top, right, bottom = RECT5
+    batch = make_batch(BATCH5, H5, W5, seed=70)
+    crop = batch[:, top:bottom, left:right].permute(0, 3, 1, 2)
+    minv = vt.invert_affine(np.asarray(M5, np.float32))
+    (w_out, h_out), (ch, cw) = WARP5, (bottom - top, right - left)
+    k_ms, p_ms, kr, pr = time_in_turns(
+        lambda: warp_planes_batch(crop, minv, h_out, w_out),
+        lambda: warp_planes_batch_torch(crop, minv, h_out, w_out), 100, 5)
+    # Bytes the warp must move: the crop's pixels the output maps onto
+    # (the bounding box of the mapped output corners, inside the crop),
+    # 3 bytes each, and the u8 output once.
+    cx = [minv[0, 0] * x + minv[0, 1] * y + minv[0, 2] for x in (0, w_out) for y in (0, h_out)]
+    cy = [minv[1, 0] * x + minv[1, 1] * y + minv[1, 2] for x in (0, w_out) for y in (0, h_out)]
+    src_px = ((min(max(cx), cw) - max(min(cx), 0)) * (min(max(cy), ch) - max(min(cy), 0)))
+    moved = BATCH5 * (3 * src_px + 3 * h_out * w_out)
+    log(f"[time] warp config 5: the output maps onto {src_px / (ch * cw) * 100:.1f}% of the "
+        f"{ch}x{cw} crop; the kernel must move {moved / 1e6:.1f} MB (source "
+        f"{BATCH5 * 3 * src_px / 1e6:.1f} MB + out {BATCH5 * 3 * h_out * w_out / 1e6:.1f} MB)")
+    report(f"warp u8 config 5 {BATCH5}x3x{ch}x{cw} -> {h_out}x{w_out}", k_ms, p_ms, kr, pr,
+           moved, (BATCH5, "frames"), card)
+    times["warp_affine"] = (k_ms, p_ms)
+    del batch, crop
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(71)
+    x = torch.randint(0, 256, (3, TRACK_H, TRACK_W), generator=g, device="cuda").float()
+    k = torch.randint(0, 256, (3, TARGET, TARGET), generator=g, device="cuda").float()
+    k_ms, p_ms, kr, pr = time_in_turns(lambda: corr_planes(x, k),
+                                       lambda: corr_planes_torch(x, k), 20, 5)
+    outs = (TRACK_H - TARGET + 1) * (TRACK_W - TARGET + 1)
+    moved = (x.numel() + k.numel() + outs) * 4
+    flops = 2 * outs * k.numel()
+    log(f"[time] corr must move {moved / 1e6:.1f} MB and do {flops / 1e9:.2f} GFLOP; "
+        f"kernel {flops / k_ms / 1e9:.2f} TFLOP/s = {100 * flops / k_ms / 1e9 / FP32_TFLOPS:.2f}% "
+        f"of {FP32_TFLOPS} f32 TFLOP/s, plain {flops / p_ms / 1e9:.2f} TFLOP/s [{card}]")
+    report(f"corr (3, {TRACK_H}, {TRACK_W}) x (3, {TARGET}, {TARGET})", k_ms, p_ms, kr, pr,
+           moved, (1, "frames"), card)
+    times["match_corr"] = (k_ms, p_ms)
+
+    pre = Preprocessor(PreprocessConfig(crop_rect=VRect(*RECT5), warp=(M5, WARP5),
+                                        out_size=(OUT, OUT)), device="cuda")
+    batch = make_batch(BATCH5, H5, W5, seed=72)
+    dev_top = torch.tensor(top, dtype=torch.int32, device="cuda")
+    for name, run in (("static top", lambda: pre.batch(batch)),
+                      ("device top", lambda: pre.batch(batch, top=dev_top))):
+        run()
+        main_ms = time_ms(run, 20)
+        log(f"[time] config 5 main path Preprocessor.batch ({name}): {main_ms:.4f} ms/batch of "
+            f"{BATCH5}, {BATCH5 / main_ms * 1e3:.1f} frames/s [{card}]")
+    frames, target, _ = tracking_stream(n=2)
+    step = tracking_pipeline()
+    step(frames[0], target)
+    track_ms = time_ms(lambda: step(frames[1], target), 20)
+    log(f"[time] tracking main path (cvt_color, match_template, min_max_loc, fused NV "
+        f"preprocess): {track_ms:.4f} ms/frame, {1e3 / track_ms:.1f} frames/s [{card}]")
+    return times
+
+
 def main() -> int:
     card = phase_device()
     import vacv_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -578,6 +893,8 @@ def main() -> int:
         "preprocess_fused_nv": phase_compare_nv(),
         "yuv2bgr": phase_compare_yuv2bgr(),
         "normalize_fused": phase_compare_normalize(),
+        "warp_affine": phase_compare_warp(),
+        "match_corr": phase_compare_corr(),
     }
     # Each main path is driven with the counts set to 0 just before it
     # and read just after (inside each phase).
@@ -585,7 +902,15 @@ def main() -> int:
     chain = phase_main_nv_chain()
     launches["yuv2bgr"] = chain["yuv2bgr"] + phase_main_config2()
     launches["normalize_fused"] = chain["normalize_fused"]
-    times = {"preprocess_fused": phase_time(card), **phase_time_nv(card)}
+    config5 = phase_main_config5()
+    launches["warp_affine"] = config5["warp_affine"]
+    launches["normalize_fused"] += config5["normalize_fused"]
+    tracking = phase_main_tracking()
+    launches["match_corr"] = tracking["match_corr"]
+    launches["yuv2bgr"] += tracking["yuv2bgr"]
+    launches["preprocess_fused_nv"] += tracking["preprocess_fused_nv"]
+    times = {"preprocess_fused": phase_time(card), **phase_time_nv(card),
+             **phase_time_warp_corr(card)}
     record = {"kernels": [{
         "name": name,
         "route": "cuda",

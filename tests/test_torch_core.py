@@ -166,7 +166,8 @@ def test_import_loads_neither_jax_nor_triton():
         "import sys, vacv_tpu_torch, vacv_tpu_torch.models, "
         "vacv_tpu_torch.ops.cuda, vacv_tpu_torch.ops.cuda.yuv2bgr, "
         "vacv_tpu_torch.ops.cuda.normalize, vacv_tpu_torch.ops.cvt_color, "
-        "vacv_tpu_torch.utils; "
+        "vacv_tpu_torch.ops.cuda.warp_affine, vacv_tpu_torch.ops.cuda.match_template, "
+        "vacv_tpu_torch.ops.fused, vacv_tpu_torch.utils; "
         "bad = [m for m in ('jax', 'triton', 'vacv_tpu') if m in sys.modules]; "
         "assert not bad, bad"
     )
@@ -181,7 +182,9 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
     import re
     import types
 
-    from vacv_tpu_torch.ops.cuda import build, normalize, preprocess, yuv2bgr
+    from vacv_tpu_torch.ops.cuda import (
+        build, match_template, normalize, preprocess, warp_affine, yuv2bgr,
+    )
 
     c_types = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong,
                "void*": ctypes.c_void_p, "const void*": ctypes.c_void_p}
@@ -198,7 +201,8 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
 
     fake = types.SimpleNamespace(**{name: Fn() for name in declared})
     monkeypatch.setattr(build, "library", lambda: types.SimpleNamespace(lib=fake))
-    wrappers = (normalize._entry_points, preprocess._entry_points, yuv2bgr._entry_points)
+    wrappers = (normalize._entry_points, preprocess._entry_points, yuv2bgr._entry_points,
+                warp_affine._entry_points, match_template._entry_points)
     for entry in wrappers:
         entry.cache_clear()
     try:

@@ -5,8 +5,11 @@ CUDA device, so on a CPU-only host the whole file skips.  Each kernel is
 held to its plain PyTorch version on the same CUDA tensors: the fused
 preprocess kernels to cosine >= 1-1e-6 and max-abs < 0.05 normalized,
 and at most 1 LSB on under 1e-3 of the values with ``normalize=False``;
-yuv2bgr bit-exact; normalize to cosine >= 1-1e-6 and max-abs < 1e-4.
+yuv2bgr bit-exact; normalize to cosine >= 1-1e-6 and max-abs < 1e-4; the
+warp kernel bit-exact on u8 and within 5e-3 on f32; the correlation kernel
+within 1e-5 of the largest response magnitude.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +17,7 @@ import vacv_tpu_torch as vt
 from vacv_tpu_torch import config
 from vacv_tpu_torch.core.types import ColorCode, InterMode, VRect
 from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+from vacv_tpu_torch.ops.cuda.match_template import corr_planes, corr_planes_torch
 from vacv_tpu_torch.ops.cuda.normalize import normalize_fused
 from vacv_tpu_torch.ops.cuda.preprocess import (
     preprocess_fused_batch,
@@ -21,6 +25,7 @@ from vacv_tpu_torch.ops.cuda.preprocess import (
     preprocess_fused_nv_batch,
     preprocess_fused_nv_batch_torch,
 )
+from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
 from vacv_tpu_torch.ops.cuda.yuv2bgr import nv_to_bgr
 from vacv_tpu_torch.ops.cvt_color import nv_to_bgr_planes_torch
 from vacv_tpu_torch.ops.normalize import normalize_torch
@@ -276,3 +281,155 @@ def test_new_wrappers_raise_on_inputs_their_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         normalize_fused(x[0])
     assert [config.kernel_count(k) for k in names] == before
+
+
+# ---- the warp kernel ------------------------------------------------------
+
+M_ROT = np.array([[0.9, 0.03, 40.0], [-0.03, 0.9, 25.0]], np.float32)
+WARP_MATRICES = {
+    "rotation": vt.invert_affine(M_ROT),
+    "rot30": vt.invert_affine(vt.get_rotation_matrix_2d(vt.VPoint(320, 180), 30.0, 1.1)),
+    "axis_flip": vt.invert_affine(np.array([[-1.25, 0, 700.0], [0, 0.75, 10.0]], np.float32)),
+    "mostly_out": vt.invert_affine(np.array([[0.5, 0, 500.0], [0, 0.5, 300.0]], np.float32)),
+}
+BORDERS = [vt.BORDER_CONSTANT, vt.BORDER_REPLICATE, vt.BORDER_REFLECT, vt.BORDER_WRAP,
+           vt.BORDER_REFLECT_101]
+
+
+def assert_warp_close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.uint8:
+        assert torch.equal(got, want), (got.int() - want.int()).abs().max().item()
+    else:
+        assert (got - want).abs().max().item() <= 5e-3
+
+
+@pytest.mark.parametrize("matrix", list(WARP_MATRICES))
+@pytest.mark.parametrize("interp", [vt.INTER_LINEAR, vt.INTER_NEAREST, vt.INTER_CUBIC],
+                         ids=lambda m: m.name)
+@pytest.mark.parametrize("border", BORDERS, ids=lambda b: b.name)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32], ids=["u8", "f32"])
+def test_warp_kernel_matches_plain_version(cuda, matrix, interp, border, dtype):
+    planes = batch_on(cuda, n=2, seed=10).permute(0, 3, 1, 2).to(dtype)
+    kw = dict(interp=interp, border=border, border_value=17.0)
+    minv = WARP_MATRICES[matrix]
+    got = warp_planes_batch(planes, minv, 215, 283, **kw)
+    torch.cuda.synchronize()
+    assert_warp_close(got, warp_planes_batch_torch(planes, minv, 215, 283, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.float16],
+                         ids=["u8", "f32", "f16"])
+def test_warp_affine_on_the_card_matches_the_cpu(cuda, dtype):
+    """warp_affine through every flag on a CUDA HWC image against the
+    same call on the CPU (the plain version)."""
+    img = batch_on(cuda, n=1, seed=11)[0].to(dtype)
+    for args in [
+        (M_ROT, (283, 215)),
+        (M_ROT, (283, 215), vt.INTER_LINEAR, vt.BORDER_TRANSPARENT, 9.0),
+        (vt.invert_affine(M_ROT), (283, 215), int(vt.INTER_CUBIC) | int(vt.WARP_INVERSE_MAP)),
+        (M_ROT, (283, 215), vt.INTER_NEAREST,
+         int(vt.BORDER_REFLECT) | int(vt.BORDER_ISOLATED), vt.VScalar(3.0)),
+    ]:
+        got = vt.warp_affine(img, *args)
+        want = vt.warp_affine(img.cpu(), *args)
+        assert got.data.device == cuda and got.data.is_contiguous()
+        if dtype == torch.float16:
+            assert (got.data.float().cpu() - want.data.float()).abs().max().item() <= 0.125
+        else:
+            assert_warp_close(got.data.cpu(), want.data)
+    got = vt.warp_affine(img, M_ROT, (283, 215), edge_mode="vacv").data.cpu()
+    assert_warp_close(got, vt.warp_affine(img.cpu(), M_ROT, (283, 215), edge_mode="vacv").data)
+
+
+def test_warp_counter_routes_and_raises(cuda):
+    planes = batch_on(cuda, n=2, seed=12).permute(0, 3, 1, 2)
+    minv = WARP_MATRICES["rotation"]
+    names = ("warp_affine", "warp_affine_torch")
+    before = [config.kernel_count(k) for k in names]
+    warp_planes_batch(planes, minv, 64, 64)
+    warp_planes_batch(planes.float(), minv, 64, 64, interp=vt.INTER_CUBIC)
+    warp_planes_batch(planes.cpu(), minv, 64, 64)
+    with config.backend("torch"):
+        vt.warp_affine(planes[0], M_ROT, (64, 64))  # the plain gather, by request
+    torch.cuda.synchronize()
+    assert [config.kernel_count(k) - b for k, b in zip(names, before)] == [2, 1]
+    with pytest.raises(ValueError):
+        warp_planes_batch(planes.to(torch.int32), minv, 64, 64)
+    with pytest.raises(ValueError):
+        warp_planes_batch(planes, minv, 64, 64, border=vt.BORDER_TRANSPARENT)
+    assert config.kernel_count("warp_affine") - before[0] == 2
+
+
+def test_preprocessor_config5_launches_one_warp_per_batch(cuda):
+    cfg = PreprocessConfig(crop_rect=VRect(20, 10, 620, 350),
+                           warp=(tuple(map(tuple, M_ROT)), (304, 171)), out_size=(96, 96))
+    pre = Preprocessor(cfg, device="cuda")
+    batch = batch_on(cuda, n=3, seed=13)
+    assert pre.describe_route(batch.shape[1:]) == "cuda_warp"
+    names = ("warp_affine", "normalize_fused", "warp_affine_torch", "normalize_fused_torch")
+    before = [config.kernel_count(k) for k in names]
+    got = pre.batch(batch, top=torch.tensor(7, device=cuda))
+    torch.cuda.synchronize()
+    assert [config.kernel_count(k) - b for k, b in zip(names, before)] == [1, 3, 0, 0]
+    with config.backend("torch"):
+        want = pre.batch(batch, top=torch.tensor(7, device=cuda))
+    assert_close(got, want, "self")
+
+
+# ---- the correlation kernel -----------------------------------------------
+
+def rand_on(device, shape, seed, lo=0, hi=256, frac=False):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    if frac:
+        return torch.rand(shape, generator=g, device=device) * 2 - 1
+    return torch.randint(lo, hi, shape, generator=g, device=device).to(torch.float32)
+
+
+@pytest.mark.parametrize("c,h,w,th,tw,frac", [
+    (3, 720, 1280, 48, 48, False), (3, 360, 640, 32, 32, False), (3, 200, 300, 21, 17, True),
+    (1, 120, 300, 7, 129, False), (2, 260, 260, 200, 220, False), (5, 40, 50, 1, 1, True),
+])
+def test_corr_kernel_matches_conv2d(cuda, c, h, w, th, tw, frac):
+    """Held to the exact (float64) correlation within 1e-5 of the largest
+    response, and to conv2d in f32 where its own f32 sums stay inside that
+    bar (up to 16384 terms; cuDNN's error grows with the term count)."""
+    x = rand_on(cuda, (c, h, w), seed=h + w, frac=frac)
+    k = rand_on(cuda, (c, th, tw), seed=th + tw, frac=frac)
+    got = corr_planes(x, k)
+    want = corr_planes_torch(x, k)
+    exact = torch.nn.functional.conv2d(x.double()[None], k.double()[None])[0, 0]
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (h - th + 1, w - tw + 1)
+    scale = exact.abs().max().item()
+    assert (got.double() - exact).abs().max().item() <= 1e-5 * scale
+    if c * th * tw <= 16384:
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+def test_corr_kernel_reads_strided_images(cuda):
+    hwc = rand_on(cuda, (100, 140, 3), seed=3)
+    k = rand_on(cuda, (3, 9, 11), seed=4)
+    got = corr_planes(hwc.permute(2, 0, 1), k)
+    want = corr_planes_torch(hwc.permute(2, 0, 1).contiguous(), k)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", [vt.TM_SQDIFF, vt.TM_SQDIFF_NORMED, vt.TM_CCORR,
+                                  vt.TM_CCORR_NORMED, vt.TM_CCOEFF, vt.TM_CCOEFF_NORMED],
+                         ids=lambda m: m.name)
+def test_match_template_on_the_card(cuda, mode):
+    img = batch_on(cuda, n=1, seed=14)[0]
+    tmpl = img[100:140, 200:236].clone()
+    before = config.kernel_count("match_corr")
+    got = vt.match_template(img, tmpl, mode).data
+    torch.cuda.synchronize()
+    assert config.kernel_count("match_corr") == before + 1
+    want = vt.match_template(img.cpu(), tmpl.cpu(), mode).data
+    scale = 1.0 if mode in (vt.TM_SQDIFF_NORMED, vt.TM_CCORR_NORMED, vt.TM_CCOEFF_NORMED) \
+        else want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale
+    _, _, _, (x, y) = vt.min_max_loc(got)
+    if mode != vt.TM_SQDIFF and mode != vt.TM_SQDIFF_NORMED and mode != vt.TM_CCORR:
+        assert (int(x), int(y)) == (200, 100)

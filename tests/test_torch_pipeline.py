@@ -146,13 +146,12 @@ def test_devices_are_explicit():
 
 
 def test_unported_configs_raise():
-    """NV codes are ported; the other colour codes and warp are not."""
+    """NV codes and warp configs are ported; the other colour codes are not."""
     Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21, out_size=(224, 224)))
+    Preprocessor(PreprocessConfig(warp=(((1, 0, 0), (0, 1, 0)), (64, 64))))
     with pytest.raises(NotImplementedError, match="queue 1 #12"):
         Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_BGR2RGB,
                                       out_size=(224, 224)))
-    with pytest.raises(NotImplementedError, match="queue 1 #10"):
-        Preprocessor(PreprocessConfig(warp=(((1, 0, 0), (0, 1, 0)), (64, 64))))
 
 
 @pytest.mark.parametrize("backend", ["auto", "torch"])
@@ -265,3 +264,102 @@ def test_nv_describe_route_and_counters():
     Preprocessor(NV_CONFIGS["nv21_cubic"]).batch(nv_frames(11, n=3))
     assert rose() == dict.fromkeys(names, 0) | {
         "preprocess_fused_nv_torch": 1, "yuv2bgr_torch": 3, "normalize_fused_torch": 3}
+
+
+# ---- BASELINE config 5 at reduced size: crop → rotated warp → resize → normalize
+
+def config_pair(**fields):
+    """(port config, JAX config) built from one dict of field values, so
+    both packages get the same parameters."""
+    jfields = dict(fields)
+    if "crop_rect" in fields:
+        jfields["crop_rect"] = vc.VRect(*fields["crop_rect"])
+        fields["crop_rect"] = VRect(*fields["crop_rect"])
+    if "interpolation" in fields:
+        jfields["interpolation"] = vc.InterMode(int(fields["interpolation"]))
+    if "color_code" in fields:
+        jfields["color_code"] = vc.ColorCode(int(fields["color_code"]))
+    if "out_layout" in fields:
+        jfields["out_layout"] = vc.Layout(fields["out_layout"].value)
+    return PreprocessConfig(**fields), JConfig(**jfields)
+
+
+M5 = ((0.9, 0.03, 4.0), (-0.03, 0.9, 2.5))  # config 5's rotation and scale
+CONFIG5 = dict(crop_rect=(6, 4, 250, 140), warp=(M5, (112, 64)), out_size=(32, 32))
+
+
+def frames5(seed, n=2):
+    return frames(seed, n=n, h=144, w=256)
+
+
+def jax_pre_batch(jcfg_, batch, backend):
+    with jconfig.backend(backend):
+        return np.asarray(JPre(jcfg_).batch(batch))
+
+
+@pytest.mark.parametrize("jax_backend", ["pallas", "jnp"])
+@pytest.mark.parametrize("port_backend", ["auto", "torch"])
+def test_config5_batch_matches_jax_preprocessor(jax_backend, port_backend):
+    cfg, jc = config_pair(**CONFIG5)
+    batch = frames5(12)
+    want = jax_pre_batch(jc, batch, jax_backend)
+    pre = Preprocessor(cfg)
+    names = ("warp_affine_torch", "normalize_fused_torch")
+    before = [config.kernel_count(k) for k in names]
+    with config.backend(port_backend):
+        route = pre.describe_route(batch.shape[1:])
+        got = pre.batch(batch).numpy()
+    rose = [config.kernel_count(k) - b for k, b in zip(names, before)]
+    if port_backend == "auto":
+        # One warp call for the whole batch, one normalize per frame.
+        assert route == "warp_torch" and rose == [1, 2]
+    else:
+        assert route == "torch_chain" and rose == [0, 0]
+    assert got.shape == (2, 3, 32, 32)
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(CONFIG5, interpolation=InterMode.INTER_CUBIC, mean=(104.0, 117.0, 123.0),
+         stddev=(57.1, 57.4, 58.4)),
+    dict(CONFIG5, out_layout=Layout.HWC),
+    dict(warp=(M5, (112, 64)), out_size=(32, 32)),
+    dict(CONFIG5, color_code=ColorCode.COLOR_YUV2BGR_NV21),
+], ids=["cubic_static", "hwc_out", "no_crop", "nv21"])
+def test_config5_variants_match_jax(fields):
+    """A cubic resize with static stats, an HWC output, no crop and NV21
+    input all take the warp route and match the JAX chain."""
+    cfg, jc = config_pair(**fields)
+    batch = frames5(13) if cfg.color_code is None else nv_frames(13, h=144, w=256)
+    want = jax_pre_batch(jc, batch, "jnp")
+    pre = Preprocessor(cfg)
+    assert pre.describe_route(batch.shape[1:]) == "warp_torch"
+    assert_close(pre.batch(batch).numpy(), want)
+    assert_close(pre(batch[0]).numpy(), want[0])
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_config5_runtime_top_matches_moved_rect(backend):
+    cfg, _ = config_pair(**CONFIG5)
+    _, moved = config_pair(**dict(CONFIG5, crop_rect=(6, 1, 250, 137)))
+    batch = frames5(14)
+    want = jax_pre_batch(moved, batch, "jnp")
+    pre = Preprocessor(cfg)
+    with config.backend(backend):
+        for top in (1, torch.tensor(1, dtype=torch.int32)):
+            assert_close(pre.batch(batch, top=top).numpy(), want)
+        far = pre.batch(batch, top=torch.tensor(999)).numpy()
+        np.testing.assert_array_equal(far, pre.batch(batch, top=144 - 136).numpy())
+
+
+def test_config5_describe_route():
+    cfg, _ = config_pair(**CONFIG5)
+    assert Preprocessor(cfg).describe_route((144, 256, 3)) == "warp_torch"
+    assert Preprocessor(cfg, device="cuda").describe_route((144, 256, 3)) == "cuda_warp"
+    assert Preprocessor(cfg).describe_route((144, 256, 3), device="cuda") == "cuda_warp"
+    # The warp route takes any frame shape and type, whatever the resize.
+    assert Preprocessor(cfg).describe_route((144, 256, 3), torch.float32) == "warp_torch"
+    cubic, _ = config_pair(**dict(CONFIG5, interpolation=InterMode.INTER_CUBIC))
+    assert Preprocessor(cubic).describe_route((144, 256, 3)) == "warp_torch"
+    with config.backend("torch"):
+        assert Preprocessor(cfg).describe_route((144, 256, 3)) == "torch_chain"

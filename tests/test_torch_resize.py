@@ -97,3 +97,21 @@ def test_resize_fx_fy_and_errors():
         vt.resize(a, None)
     with pytest.raises(NotImplementedError):
         vt.resize(a, (5, 5), interpolation=vc.INTER_MAX)
+
+
+def test_device_weights_are_copied_once_and_reused():
+    """The chain's resize keeps its weight matrices on the planes' device:
+    a second call with the same config reuses the same tensors."""
+    planes = torch.rand((3, 41, 57))
+    tr._device_weights.cache_clear()
+    a = tr.resize_planes(planes, 19, 23, vt.INTER_CUBIC, u8=False)
+    first = tr._device_weights(41, 57, 19, 23, int(vt.INTER_CUBIC), False, planes.device)
+    b = tr.resize_planes(planes, 19, 23, vt.INTER_CUBIC, u8=False)
+    again = tr._device_weights(41, 57, 19, 23, int(vt.INTER_CUBIC), False, planes.device)
+    assert first[0] is again[0] and first[1] is again[1]
+    info = tr._device_weights.cache_info()
+    assert (info.misses, info.hits, info.maxsize) == (1, 3, 256)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    wy, wx = tr._weight_matrices(41, 57, 19, 23, int(vt.INTER_CUBIC), False)
+    np.testing.assert_array_equal(first[0].numpy(), wy)
+    np.testing.assert_array_equal(first[1].numpy(), wx.T)

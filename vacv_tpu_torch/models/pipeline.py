@@ -6,10 +6,13 @@ batch of frames.  Where the config is the reference's flagship chain
 (crop → resize → CHW f32 → normalize, BASELINE config 4) the whole chain
 is one fused call (``ops/cuda/preprocess.py``): over u8 BGR frames, or,
 with an NV ``color_code`` and bilinear resize, over stacked NV21/NV12
-camera buffers with the decode inside the kernel.  The fused call is the
-CUDA kernel for a CUDA tensor and its plain PyTorch version for a CPU
-tensor.  Anything else runs the chain of ops frame by frame; an NV
-chain decodes straight to CHW planes first.
+camera buffers with the decode inside the kernel.  A config with a
+``warp`` (BASELINE config 5) crops the batch, warps all its frames in
+one call of the warp kernel's wrapper (``ops/cuda/warp_affine.py``) and
+runs the per-frame tail (resize → layout → f32 → normalize).  Each
+wrapper is the CUDA kernel for a CUDA tensor and its plain PyTorch
+version for a CPU tensor.  Anything else runs the chain of ops frame by
+frame; an NV chain decodes straight to CHW planes first.
 
 Devices are explicit: a tensor is processed on the device it lies on; a
 numpy input goes to the ``device`` the Preprocessor was given.
@@ -18,19 +21,22 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import config
 from ..core.image import Image, as_tensor
 from ..core.types import ColorCode, InterMode, Layout, VRect
-from ..ops.crop import crop, crop_dynamic
+from ..ops.crop import crop, crop_dynamic, dynamic_slice
 from ..ops.cuda.preprocess import (
     INTERP_MODES, preprocess_fused_batch, preprocess_fused_nv_batch,
 )
+from ..ops.cuda.warp_affine import warp_planes_batch
 from ..ops.cvt_color import nv_code, nv_decode_channels
 from ..ops.dtype import as_torch_dtype
 from ..ops.normalize import normalize
 from ..ops.resize import resize
+from ..ops.warp_affine import invert_affine, warp_affine
 
 _FUSED_INTERP = {mode: name for name, mode in INTERP_MODES.items()}
 
@@ -51,7 +57,9 @@ class PreprocessConfig:
     color_code: ColorCode | None = None
     # Optional crop ROI in source coordinates.
     crop_rect: VRect | None = None
-    # Affine warp ((2x3 matrix), (w, h)).  Not ported yet.
+    # Optional affine warp: (2x3 forward matrix as a nested tuple, (w, h)
+    # output size).  Applied after the crop, before the resize (BASELINE
+    # config 5): INTER_LINEAR, BORDER_CONSTANT, border value 0.
     warp: tuple[tuple, tuple[int, int]] | None = None
     # Output spatial size (w, h); None keeps input size.
     out_size: tuple[int, int] | None = None
@@ -74,10 +82,6 @@ class Preprocessor:
     def __init__(self, cfg: PreprocessConfig, device="cpu"):
         if cfg.color_code is not None:
             nv_code(cfg.color_code)  # NotImplementedError for a non-NV code
-        if cfg.warp is not None:
-            raise NotImplementedError(
-                "warp is not ported yet: ROADMAP.md queue 1 #10 (warp_affine)"
-            )
         self.cfg = cfg
         self.device = torch.device(device)
 
@@ -91,7 +95,7 @@ class Preprocessor:
         alignment or size floors.
         """
         cfg = self.cfg
-        if not config.use_fused():
+        if not config.use_fused() or cfg.warp is not None:
             return None
         interp = _FUSED_INTERP.get(InterMode(cfg.interpolation))
         if cfg.out_size is None or interp is None or cfg.out_layout != Layout.CHW:
@@ -124,19 +128,28 @@ class Preprocessor:
             return None
         return (nv, left, top, cw, ch, oh, ow, interp)
 
+    def _warp_route(self) -> bool:
+        """Does a batch take the warp route (one warp call over the whole
+        batch, then the per-frame tail)?  Any warp config does, under the
+        ``auto`` backend, whatever its input shape, type or
+        interpolation."""
+        return self.cfg.warp is not None and config.use_fused()
+
     def describe_route(self, shape, dtype=None, device=None) -> str:
         """Which route a batch of per-image ``shape`` frames (HWC, or
         (H·3/2, W) for NV input) takes: ``"cuda_fused"`` /
-        ``"cuda_fused_nv"`` (the CUDA kernel), ``"fused_torch"`` /
-        ``"fused_nv_torch"`` (its plain PyTorch version, on a CPU tensor)
-        or ``"torch_chain"``.
+        ``"cuda_fused_nv"`` / ``"cuda_warp"`` (the CUDA kernel),
+        ``"fused_torch"`` / ``"fused_nv_torch"`` / ``"warp_torch"`` (its
+        plain PyTorch version, on a CPU tensor) or ``"torch_chain"``.
 
         ``device`` is where the batch lies; None means the
         Preprocessor's own device (where a numpy batch goes)."""
+        dev = torch.device(device) if device is not None else self.device
+        if self._warp_route():
+            return "cuda_warp" if dev.type == "cuda" else "warp_torch"
         geom = self._fused_geometry(tuple(shape), dtype or torch.uint8)
         if geom is None:
             return "torch_chain"
-        dev = torch.device(device) if device is not None else self.device
         nv = "_nv" if geom[0] is not None else ""
         return f"cuda_fused{nv}" if dev.type == "cuda" else f"fused{nv}_torch"
 
@@ -152,21 +165,26 @@ class Preprocessor:
                                              to_rgb=to_rgb, **kwargs)
         return preprocess_fused_batch(batch, rect, (ow, oh), interp=interp, **kwargs)
 
-    def _run_chain(self, frame, top):
-        """The per-image chain of ops ([NV decode →] crop → resize →
-        layout → f32 → normalize)."""
+    def _crop_args(self, top):
+        """(left, top, cw, ch, static) of the crop, or None for no crop:
+        the rect's own top when ``top`` is None (``static``), else the
+        runtime ``top`` clamped below at 0, as the fused route clamps it."""
+        if self.cfg.crop_rect is None:
+            return None
+        left, top0, cw, ch = self.cfg.crop_rect.int_bounds()
+        if cw <= 0 or ch <= 0:
+            raise ValueError(f"empty crop rect {self.cfg.crop_rect}")
+        if top is None:
+            return left, top0, cw, ch, True
+        top = torch.clamp(top, min=0) if isinstance(top, torch.Tensor) else max(int(top), 0)
+        return left, top, cw, ch, False
+
+    def _tail(self, img: Image):
+        """The stages after the crop and the warp (resize → layout → f32 →
+        normalize) on one image: shared by the chain and the warp route,
+        so the two stay identical past the warp (the reference's
+        ``_tail_fn``)."""
         cfg = self.cfg
-        img = Image(frame, Layout.HWC)
-        if cfg.color_code is not None:
-            img = _decode_color(img, cfg.color_code)
-        if cfg.crop_rect is not None:
-            if top is None:
-                img = crop(img, cfg.crop_rect)
-            else:
-                # Clamped to the frame, as the fused route clamps it.
-                top = torch.clamp(top, min=0) if isinstance(top, torch.Tensor) else max(int(top), 0)
-                left, _, cw, ch = cfg.crop_rect.int_bounds()
-                img = crop_dynamic(img, left, top, cw, ch)
         if cfg.out_size is not None:
             w, h = cfg.out_size
             img = resize(img, (w, h), interpolation=cfg.interpolation)
@@ -175,6 +193,47 @@ class Preprocessor:
         if cfg.normalize:
             img = normalize(img, cfg.mean, cfg.stddev)
         return img.data
+
+    def _run_chain(self, frame, top):
+        """The per-image chain of ops ([NV decode →] crop → [warp →]
+        resize → layout → f32 → normalize)."""
+        cfg = self.cfg
+        img = Image(frame, Layout.HWC)
+        if cfg.color_code is not None:
+            img = _decode_color(img, cfg.color_code)
+        args = self._crop_args(top)
+        if args is not None:
+            img = crop(img, cfg.crop_rect) if args[-1] else crop_dynamic(img, *args[:-1])
+        if cfg.warp is not None:
+            m, dsize = cfg.warp
+            img = warp_affine(img.change_layout(Layout.CHW), [list(r) for r in m], tuple(dsize))
+        return self._tail(img)
+
+    def _run_warp(self, batch, top):
+        """BASELINE config 5: [NV decode →] crop the batch, warp all N·C
+        planes in one call (INTER_LINEAR, BORDER_CONSTANT, border value 0,
+        as the reference's ``warp_affine(img, m, dsize)``), then the
+        per-frame tail."""
+        cfg = self.cfg
+        if cfg.color_code is not None:
+            planes = torch.stack([_decode_color(Image(f, Layout.HWC), cfg.color_code).data
+                                  for f in batch])
+        elif batch.ndim == 3:
+            planes = batch[:, None]  # gray frames
+        else:
+            planes = batch.permute(0, 3, 1, 2)  # HWC frames, read through their strides
+        args = self._crop_args(top)
+        if args is not None:
+            left, top, cw, ch, static = args
+            if static:
+                planes = planes[:, :, top : top + ch, left : left + cw]
+            else:
+                planes = dynamic_slice(dynamic_slice(planes, 2, top, ch), 3, left, cw)
+        m, (w, h) = cfg.warp
+        minv = invert_affine(np.asarray([list(r) for r in m], dtype=np.float32))
+        out = warp_planes_batch(planes, minv, int(h), int(w))
+        gray = cfg.color_code is None and batch.ndim == 3
+        return torch.stack([self._tail(Image(o[0] if gray else o, Layout.CHW)) for o in out])
 
     def _to_device(self, arr):
         return arr if isinstance(arr, torch.Tensor) else as_tensor(arr).to(self.device)
@@ -188,6 +247,8 @@ class Preprocessor:
         on the device); the crop keeps its size and is clamped to the
         frame."""
         arr = self._to_device(arr)
+        if self._warp_route():
+            return self._run_warp(arr, top)
         geom = self._fused_geometry(tuple(arr.shape[1:]), arr.dtype)
         if geom is not None:
             return self._run_fused(arr, geom, top)

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sources in ``vacv_tpu_torch/csrc``),
 each beside its plain PyTorch version.  Importing builds nothing."""
+from .match_template import corr_planes, corr_planes_torch
 from .normalize import normalize_fused
 from .preprocess import (
     preprocess_fused_batch,
@@ -8,3 +9,4 @@ from .preprocess import (
     preprocess_fused_nv_batch_torch,
 )
 from .yuv2bgr import nv_to_bgr
+from .warp_affine import warp_planes_batch, warp_planes_batch_torch

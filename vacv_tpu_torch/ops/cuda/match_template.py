@@ -1,0 +1,87 @@
+"""Valid 2-D cross-correlation summed over channels: the correlation
+kernel's wrapper.
+
+The counterpart of ``vacv_tpu/ops/pallas/match_template.py::corr_pallas``.
+``corr_planes`` takes a (C, H, W) f32 image of any strides and a (C, th,
+tw) f32 template and returns the (H-th+1, W-tw+1) f32 response
+``out[y, x] = Σ_c Σ_i Σ_j img[c, y+i, x+j] · k[c, i, j]``, for any C, th
+and tw.
+
+On a CUDA tensor it launches the hand-written kernel
+(``vacv_tpu_torch/csrc/match_template.cu``), counted as ``"match_corr"``,
+or raises; on a CPU tensor it runs the plain version ``corr_planes_torch``
+(``torch.nn.functional.conv2d`` in f32), counted as ``"match_corr_torch"``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ... import config
+from . import build
+
+
+@functools.lru_cache(maxsize=1)
+def _entry_points():
+    lib = build.library().lib
+    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    fn = lib.vacv_match_corr
+    fn.restype = i
+    # device, stream, img, c, h, w, strides c/y/x, template, th, tw, out
+    fn.argtypes = [i, p, p, i, i, i, ll, ll, ll, p, i, i, p]
+    return lib, fn
+
+
+def _check(img, k):
+    if img.ndim != 3 or k.ndim != 3:
+        raise ValueError(f"correlation needs (C, H, W) and (C, th, tw), got "
+                         f"{tuple(img.shape)} and {tuple(k.shape)}")
+    if img.dtype != torch.float32 or k.dtype != torch.float32:
+        raise ValueError(f"correlation takes float32, got {img.dtype} and {k.dtype}")
+    c, h, w = img.shape
+    kc, th, tw = k.shape
+    if kc != c or not (1 <= th <= h and 1 <= tw <= w):
+        raise ValueError(f"template {tuple(k.shape)} does not fit image {tuple(img.shape)}")
+    if img.device != k.device:
+        raise ValueError("image and template lie on different devices")
+
+
+def corr_planes_torch(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``conv2d`` (a cross-correlation) in f32 with
+    one output channel.  Runs on any device; on a card, turn TF32 off
+    (``torch.backends.cudnn.allow_tf32``) for f32 results."""
+    _check(img, k)
+    return torch.nn.functional.conv2d(img[None], k[None])[0, 0]
+
+
+def _launch(img, k):
+    c, h, w = img.shape
+    _, th, tw = k.shape
+    dev = img.device
+    out = torch.empty((h - th + 1, w - tw + 1), dtype=torch.float32, device=dev)
+    k = k.contiguous()
+    lib, fn = _entry_points()
+    rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
+            img.data_ptr(), c, h, w, *img.stride(), k.data_ptr(), th, tw, out.data_ptr())
+    build.check(lib, rc, "correlation kernel")
+    config.record_kernel("match_corr")
+    return out
+
+
+def corr_planes(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Valid cross-correlation of a (C, H, W) f32 image (any strides) with
+    a (C, th, tw) f32 template, summed over channels.
+
+    Raises ValueError for inputs the kernel does not take (not rank 3, not
+    f32, a template larger than the image or with another channel
+    count)."""
+    _check(img, k)
+    if img.device.type == "cuda":
+        return _launch(img, k)
+    if img.device.type != "cpu":
+        raise ValueError(f"no correlation route for device {img.device}")
+    out = corr_planes_torch(img, k)
+    config.record_kernel("match_corr_torch")
+    return out

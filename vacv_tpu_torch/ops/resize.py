@@ -225,8 +225,14 @@ def _weight_matrices(
     return wy, wx
 
 
-def _weights_on(w: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(w).to(device)
+@functools.lru_cache(maxsize=256)
+def _device_weights(h_in: int, w_in: int, h_out: int, w_out: int, mode: int, quantize: bool,
+                    device: torch.device):
+    """(W_y, W_xᵀ) of a resize config as tensors on ``device``, copied
+    there once: a call reuses them instead of uploading the host
+    matrices again."""
+    wy, wx = _weight_matrices(h_in, w_in, h_out, w_out, mode, quantize)
+    return torch.from_numpy(wy).to(device), torch.from_numpy(wx).to(device).T
 
 
 def resize_planes(planes, h_out: int, w_out: int, mode: InterMode, *, u8: bool):
@@ -241,9 +247,7 @@ def resize_planes(planes, h_out: int, w_out: int, mode: InterMode, *, u8: bool):
         # Same-size: memcpy shortcut (resize.cpp:58-61).
         return planes
     quantize = bool(u8) and mode == InterMode.INTER_LINEAR
-    wy, wx = _weight_matrices(h_in, w_in, h_out, w_out, int(mode), quantize)
-    wy_t = _weights_on(wy, planes.device)
-    wx_t = _weights_on(wx, planes.device).T
+    wy_t, wx_t = _device_weights(h_in, w_in, h_out, w_out, int(mode), quantize, planes.device)
     cost_h_first = h_out * h_in * w_in + w_out * w_in * h_out
     cost_w_first = w_out * w_in * h_in + h_out * h_in * w_out
     if cost_h_first <= cost_w_first:
