@@ -24,7 +24,10 @@ Phases, each printed as it runs:
    over every interpolation, border, border value and type, four
    matrices, and the flags through ``warp_affine``; the correlation kernel
    against ``conv2d`` (TF32 off), within 1e-5 of the largest response, at
-   four shapes;
+   four shapes; the tensor-core probe at every shape of
+   benchmarks/probe_i8.py (bf16 and int8, 96x128x2048x64, the int8 K sweep,
+   1024^3x32) and ragged ones, bit-exact on the probe's integer operands,
+   random bf16 within 1e-5 of the largest sum of |a||b|;
 4. main paths, each with the launch counters reset just before and read
    just after: config 4 (``Preprocessor.batch`` on three batches with a
    moving crop top held on the device), the fused NV camera path (the
@@ -38,8 +41,18 @@ Phases, each printed as it runs:
    ``min_max_loc`` → a device top → the fused NV route; the target found
    within 2 px on every frame); each result is held against the plain
    PyTorch chain;
-5. time: each kernel against its plain version with CUDA events, in
-   turns, and the main paths.
+5. the harness path: the probe script as a user runs it
+   (``vacv_tpu_torch.profile.probe_i8``: its rate, share of peak and a
+   library call per shape, then the profiler's kernel time); ``CvProfile``
+   over the five BASELINE configs at their own shapes, the port on the
+   card against its plain chain on the CPU, every row at the 1e-4 bar;
+   the SLAM front end of ``examples/slam_frontend.py`` (eight 720p frames
+   through ``BatchLoader`` and ``to_device``, NV21 by the native host
+   library, the NV21 and BGR Preprocessors on numpy input, back on cuda:0);
+6. time: each kernel against its plain version (CUDA-event loop slopes
+   of ``utils/perf.device_time``, in turns), its bound (bytes at 3.35
+   TB/s or operations at the peak of their type) and one library call for
+   the same function where PyTorch has one, and the main paths.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -49,6 +62,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -72,6 +86,7 @@ KERNELS = {
                     "vacv_tpu/ops/pallas/warp_affine.py:365"),
     "match_corr": ("vacv_tpu_torch/csrc/match_template.cu",
                    "vacv_tpu/ops/pallas/match_template.py:71"),
+    "probe_dot": ("vacv_tpu_torch/csrc/probe_mma.cu", "benchmarks/probe_i8.py:22"),
 }
 # BASELINE config 5 (benchmarks/baseline_configs.py:148-186): 2560x1440
 # frames, crop (64, 36)-(2496, 1404), a rotated warp to 1216x684, 224 out,
@@ -663,20 +678,21 @@ def phase_main_config2() -> int:
     return launches
 
 
-def time_ms(fn, iters: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def ms_per_call(fn, iters: int) -> float:
+    """Per-call time of ``fn()`` in ms: the CUDA-event loop slope of
+    ``utils/perf.device_time``, ``iters`` calls against 2."""
+    from vacv_tpu_torch.utils.perf import device_time
+
+    return device_time(lambda i: fn(), iters=iters, base_iters=2) * 1e3
 
 
-def phase_time(card: str) -> tuple[float, float]:
-    import numpy as np
+def timing(k_ms, p_ms, bound_ms, bound_by, library_ms=None) -> dict:
+    """A kernel's times for the kernels line (plain floats for JSON)."""
+    return dict(ms=float(k_ms), plain_ms=float(p_ms), bound_ms=float(bound_ms),
+                bound_by=bound_by, library_ms=None if library_ms is None else float(library_ms))
 
+
+def phase_time(card: str) -> dict:
     from vacv_tpu_torch.core.types import VRect
     from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
     from vacv_tpu_torch.ops.cuda.preprocess import (
@@ -685,16 +701,9 @@ def phase_time(card: str) -> tuple[float, float]:
 
     rect = VRect(LEFT, TOP, LEFT + CW, TOP + CH)
     batch = make_batch(BATCH, H, W, seed=0)
-    kern = lambda: preprocess_fused_batch(batch, rect, (OUT, OUT))  # noqa: E731
-    plain = lambda: preprocess_fused_batch_torch(batch, rect, (OUT, OUT))  # noqa: E731
-    for _ in range(3):
-        kern()
-        plain()
-    torch.cuda.synchronize()
-    # In turns: plain, kernel, kernel, plain.
-    p1, k1, k2, p2 = (time_ms(plain, 10), time_ms(kern, 50),
-                      time_ms(kern, 50), time_ms(plain, 10))
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    k_ms, p_ms, kr, pr = time_in_turns(lambda: preprocess_fused_batch(batch, rect, (OUT, OUT)),
+                                       lambda: preprocess_fused_batch_torch(batch, rect, (OUT, OUT)),
+                                       50, 10)
     # Bytes the kernel has to move: the source rows that carry a tap,
     # across the crop's width, and the f32 planes written once.
     rows = int(np.count_nonzero(_resize_weights(CH, OUT, "linear").any(axis=0)))
@@ -706,33 +715,25 @@ def phase_time(card: str) -> tuple[float, float]:
         f"columns; kernel must move {moved / 1e6:.1f} MB "
         f"(source {src_bytes / 1e6:.1f} MB + out {out_bytes / 1e6:.1f} MB; "
         f"whole crop {BATCH * CH * CW * 3 / 1e6:.1f} MB)")
-    for name, runs, ms in (("kernel", (k1, k2), k_ms),
-                           ("plain", (p1, p2), p_ms)):
-        log(f"[time] {name}: {ms:.4f} ms/batch of {BATCH} "
-            f"(runs {runs[0]:.4f}, {runs[1]:.4f}), "
-            f"{BATCH / ms * 1e3:.1f} frames/s, "
-            f"{moved / ms / 1e6:.1f} GB/s = "
-            f"{100 * moved / ms / 1e9 / HBM_TBPS:.2f}% of {HBM_TBPS} TB/s "
-            f"[{card}]")
+    report(f"fused {BATCH}x{H}x{W}", k_ms, p_ms, kr, pr, moved, (BATCH, "frames"), card)
     # The main path as a user calls it, crop top on the device.
-    pre = Preprocessor(PreprocessConfig(crop_rect=rect, out_size=(OUT, OUT)),
-                       device="cuda")
+    pre = Preprocessor(PreprocessConfig(crop_rect=rect, out_size=(OUT, OUT)))
     top = torch.tensor(TOP, dtype=torch.int32, device="cuda")
-    main_ms = time_ms(lambda: pre.batch(batch, top=top), 50)
+    main_ms = ms_per_call(lambda: pre.batch(batch, top=top), 50)
     log(f"[time] main path Preprocessor.batch: {main_ms:.4f} ms/batch of "
         f"{BATCH}, {BATCH / main_ms * 1e3:.1f} frames/s [{card}]")
-    return k_ms, p_ms
+    return timing(k_ms, p_ms, moved / HBM_TBPS / 1e9, "bytes")
 
 
 def time_in_turns(kern, plain, k_iters, p_iters):
-    """(kernel ms, plain ms, kernel runs, plain runs) per call, CUDA
-    events after warm-up, in turns: plain, kernel, kernel, plain."""
+    """(kernel ms, plain ms, kernel runs, plain runs) per call, CUDA-event
+    loop slopes after warm-up, in turns: plain, kernel, kernel, plain."""
     for _ in range(3):
         kern()
         plain()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = (time_ms(plain, p_iters), time_ms(kern, k_iters),
-                      time_ms(kern, k_iters), time_ms(plain, p_iters))
+    p1, k1, k2, p2 = (ms_per_call(plain, p_iters), ms_per_call(kern, k_iters),
+                      ms_per_call(kern, k_iters), ms_per_call(plain, p_iters))
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2), (p1, p2)
 
 
@@ -750,9 +751,7 @@ def report(label, k_ms, p_ms, k_runs, p_runs, moved, per, card) -> None:
 
 def phase_time_nv(card: str) -> dict:
     """The camera path's kernels against their plain versions, and the
-    fused NV main path.  Returns {name: (kernel ms, plain ms)}."""
-    import numpy as np
-
+    fused NV main path.  Returns {name: timing}."""
     from vacv_tpu_torch.core.image import Image
     from vacv_tpu_torch.core.types import ColorCode, Layout, VRect
     from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
@@ -783,7 +782,7 @@ def phase_time_nv(card: str) -> dict:
         f"{src_bytes / 1e6:.1f} MB + out {out_bytes / 1e6:.1f} MB; whole NV crop "
         f"{BATCH * CH * CW * 1.5 / 1e6:.1f} MB)")
     report(f"NV fused {BATCH}x{NV_H}x{W}", k_ms, p_ms, kr, pr, moved, (BATCH, "frames"), card)
-    times["preprocess_fused_nv"] = (k_ms, p_ms)
+    times["preprocess_fused_nv"] = timing(k_ms, p_ms, moved / HBM_TBPS / 1e9, "bytes")
 
     buf = nv[0]
     y, vu = buf[:H], buf[H:]
@@ -793,22 +792,26 @@ def phase_time_nv(card: str) -> dict:
     moved = H * W * 3 // 2 + 3 * H * W
     log(f"[time] yuv2bgr must move {moved / 1e6:.2f} MB (1.5 B/px in, 3 B/px out)")
     report(f"yuv2bgr {H}x{W}", k_ms, p_ms, kr, pr, moved, (1, "frames"), card)
-    times["yuv2bgr"] = (k_ms, p_ms)
+    times["yuv2bgr"] = timing(k_ms, p_ms, moved / HBM_TBPS / 1e9, "bytes")
 
     g = torch.Generator(device="cuda")
     g.manual_seed(5)
     x = torch.randint(0, 256, (3, H, W), generator=g, device="cuda").to(torch.float32)
     k_ms, p_ms, kr, pr = time_in_turns(
         lambda: normalize_fused(x), lambda: normalize_torch(Image(x, Layout.CHW)), 100, 20)
-    moved = 3 * x.numel() * 4
-    log(f"[time] normalize must move {moved / 1e6:.1f} MB (2 f32 reads + 1 f32 write)")
+    moved = 2 * x.numel() * 4  # the f32 planes read once and written once
+    # One library call for the same standardisation per channel:
+    # instance_norm, (x - mean) / sqrt(var + eps) with eps inside the root.
+    lib_ms = ms_per_call(lambda: torch.nn.functional.instance_norm(x[None], eps=1e-12), 100)
+    log(f"[time] normalize must move {moved / 1e6:.1f} MB (f32 in once, out once); "
+        f"library instance_norm {lib_ms:.4f} ms/call")
     report(f"normalize f32 (3, {H}, {W})", k_ms, p_ms, kr, pr, moved, (1, "images"), card)
-    times["normalize_fused"] = (k_ms, p_ms)
+    times["normalize_fused"] = timing(k_ms, p_ms, moved / HBM_TBPS / 1e9, "bytes", lib_ms)
 
     pre = Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21,
-                                        crop_rect=rect, out_size=(OUT, OUT)), device="cuda")
+                                        crop_rect=rect, out_size=(OUT, OUT)))
     top = torch.tensor(TOP, dtype=torch.int32, device="cuda")
-    main_ms = time_ms(lambda: pre.batch(nv, top=top), 50)
+    main_ms = ms_per_call(lambda: pre.batch(nv, top=top), 50)
     log(f"[time] NV main path Preprocessor.batch: {main_ms:.4f} ms/batch of "
         f"{BATCH}, {BATCH / main_ms * 1e3:.1f} frames/s [{card}]")
     return times
@@ -816,8 +819,7 @@ def phase_time_nv(card: str) -> dict:
 
 def phase_time_warp_corr(card: str) -> dict:
     """The warp and correlation kernels against their plain versions, and
-    the config-5 and tracking main paths.  Returns {name: (kernel ms,
-    plain ms)}."""
+    the config-5 and tracking main paths.  Returns {name: timing}."""
     import vacv_tpu_torch as vt
     from vacv_tpu_torch.core.types import VRect
     from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
@@ -840,13 +842,27 @@ def phase_time_warp_corr(card: str) -> dict:
     cy = [minv[1, 0] * x + minv[1, 1] * y + minv[1, 2] for x in (0, w_out) for y in (0, h_out)]
     src_px = ((min(max(cx), cw) - max(min(cx), 0)) * (min(max(cy), ch) - max(min(cy), 0)))
     moved = BATCH5 * (3 * src_px + 3 * h_out * w_out)
+    # One library call for a bilinear affine warp: grid_sample (f32 only:
+    # an f32 copy of the same planes, its grid built from the same matrix
+    # before timing).
+    xs = torch.arange(w_out, device="cuda", dtype=torch.float32)
+    ys = torch.arange(h_out, device="cuda", dtype=torch.float32)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    sx = minv[0, 0] * gx + minv[0, 1] * gy + minv[0, 2]
+    sy = minv[1, 0] * gx + minv[1, 1] * gy + minv[1, 2]
+    grid = torch.stack([(2 * sx + 1) / cw - 1, (2 * sy + 1) / ch - 1], -1)
+    grid = grid.expand(BATCH5, h_out, w_out, 2).contiguous()
+    crop_f = crop.float().contiguous()
+    lib_ms = ms_per_call(lambda: torch.nn.functional.grid_sample(
+        crop_f, grid, mode="bilinear", padding_mode="zeros", align_corners=False), 100)
     log(f"[time] warp config 5: the output maps onto {src_px / (ch * cw) * 100:.1f}% of the "
         f"{ch}x{cw} crop; the kernel must move {moved / 1e6:.1f} MB (source "
-        f"{BATCH5 * 3 * src_px / 1e6:.1f} MB + out {BATCH5 * 3 * h_out * w_out / 1e6:.1f} MB)")
+        f"{BATCH5 * 3 * src_px / 1e6:.1f} MB + out {BATCH5 * 3 * h_out * w_out / 1e6:.1f} MB); "
+        f"library grid_sample (f32) {lib_ms:.4f} ms/call")
     report(f"warp u8 config 5 {BATCH5}x3x{ch}x{cw} -> {h_out}x{w_out}", k_ms, p_ms, kr, pr,
            moved, (BATCH5, "frames"), card)
-    times["warp_affine"] = (k_ms, p_ms)
-    del batch, crop
+    times["warp_affine"] = timing(k_ms, p_ms, moved / HBM_TBPS / 1e9, "bytes", lib_ms)
+    del batch, crop, crop_f, grid
 
     g = torch.Generator(device="cuda")
     g.manual_seed(71)
@@ -854,33 +870,285 @@ def phase_time_warp_corr(card: str) -> dict:
     k = torch.randint(0, 256, (3, TARGET, TARGET), generator=g, device="cuda").float()
     k_ms, p_ms, kr, pr = time_in_turns(lambda: corr_planes(x, k),
                                        lambda: corr_planes_torch(x, k), 20, 5)
+    lib_ms = ms_per_call(lambda: torch.nn.functional.conv2d(x[None], k[None]), 5)
     outs = (TRACK_H - TARGET + 1) * (TRACK_W - TARGET + 1)
     moved = (x.numel() + k.numel() + outs) * 4
     flops = 2 * outs * k.numel()
     log(f"[time] corr must move {moved / 1e6:.1f} MB and do {flops / 1e9:.2f} GFLOP; "
         f"kernel {flops / k_ms / 1e9:.2f} TFLOP/s = {100 * flops / k_ms / 1e9 / FP32_TFLOPS:.2f}% "
-        f"of {FP32_TFLOPS} f32 TFLOP/s, plain {flops / p_ms / 1e9:.2f} TFLOP/s [{card}]")
+        f"of {FP32_TFLOPS} f32 TFLOP/s, plain {flops / p_ms / 1e9:.2f} TFLOP/s; library "
+        f"conv2d {lib_ms:.4f} ms/call [{card}]")
     report(f"corr (3, {TRACK_H}, {TRACK_W}) x (3, {TARGET}, {TARGET})", k_ms, p_ms, kr, pr,
            moved, (1, "frames"), card)
-    times["match_corr"] = (k_ms, p_ms)
+    bound = max(flops / FP32_TFLOPS / 1e9, moved / HBM_TBPS / 1e9)
+    times["match_corr"] = timing(k_ms, p_ms, bound, "operations", lib_ms)
 
     pre = Preprocessor(PreprocessConfig(crop_rect=VRect(*RECT5), warp=(M5, WARP5),
-                                        out_size=(OUT, OUT)), device="cuda")
+                                        out_size=(OUT, OUT)))
     batch = make_batch(BATCH5, H5, W5, seed=72)
     dev_top = torch.tensor(top, dtype=torch.int32, device="cuda")
     for name, run in (("static top", lambda: pre.batch(batch)),
                       ("device top", lambda: pre.batch(batch, top=dev_top))):
         run()
-        main_ms = time_ms(run, 20)
+        main_ms = ms_per_call(run, 20)
         log(f"[time] config 5 main path Preprocessor.batch ({name}): {main_ms:.4f} ms/batch of "
             f"{BATCH5}, {BATCH5 / main_ms * 1e3:.1f} frames/s [{card}]")
     frames, target, _ = tracking_stream(n=2)
     step = tracking_pipeline()
     step(frames[0], target)
-    track_ms = time_ms(lambda: step(frames[1], target), 20)
+    track_ms = ms_per_call(lambda: step(frames[1], target), 20)
     log(f"[time] tracking main path (cvt_color, match_template, min_max_loc, fused NV "
         f"preprocess): {track_ms:.4f} ms/frame, {1e3 / track_ms:.1f} frames/s [{card}]")
     return times
+
+
+# ---- the harness path: the tensor-core probe, CvProfile, the front end ----
+
+def probe_operands(m, k, n, reps, dtype, seed):
+    """The probe's integer operands (a in [-100, 100), b in [-2, 3))."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    a = torch.randint(-100, 100, (m + reps, k), generator=g, device="cuda").to(dtype)
+    b = torch.randint(-2, 3, (k, n), generator=g, device="cuda").to(dtype)
+    return a, b
+
+
+def phase_compare_probe() -> float:
+    """The probe kernel against its plain version at every shape of
+    benchmarks/probe_i8.py, both types, bit-exact on the probe's integer
+    operands (every partial sum an integer below 2^24); ragged shapes;
+    random bf16 operands within 1e-5 of the largest sum of product
+    magnitudes (f32 sums of K·reps products in another order than the
+    f64 plain version; worst case K·reps·2^-24)."""
+    from vacv_tpu_torch.ops.cuda.probe import probe_dot, probe_dot_torch
+
+    shapes = [(96, 128, 2048, 64, dt) for dt in (torch.bfloat16, torch.int8)]
+    shapes += [(96, k, 1024, 64, torch.int8) for k in (32, 64, 96, 128)]
+    shapes += [(1024, 1024, 1024, 32, dt) for dt in (torch.bfloat16, torch.int8)]
+    shapes += [(37, 64, 75, 5, dt) for dt in (torch.bfloat16, torch.int8)]
+    shapes += [(17, 96, 9, 1, dt) for dt in (torch.bfloat16, torch.int8)]
+    for i, (m, k, n, reps, dt) in enumerate(shapes):
+        a, b = probe_operands(m, k, n, reps, dt, seed=80 + i)
+        check(f"probe {m}x{k}x{n} reps={reps} {dt}", probe_dot(a, b, reps),
+              probe_dot_torch(a, b, reps), "exact")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(90)
+    a = torch.randn(96 + 64, 128, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(128, 2048, generator=g, device="cuda").to(torch.bfloat16)
+    got, want = probe_dot(a, b, 64).double(), probe_dot_torch(a, b, 64).double()
+    mag = probe_dot_torch(a.abs(), b.abs(), 64).double().max().item()
+    err = (got - want).abs().max().item()
+    log(f"[compare] probe random bf16 96x128x2048 reps=64: max_abs={err} = {err / mag:.3e} of "
+        f"the largest sum of |a||b| ({mag:.1f})")
+    require(bool(torch.isfinite(got).all()) and err <= 1e-5 * mag, "probe random bf16")
+    return 0.0
+
+
+def phase_main_probe(card: str) -> tuple[int, dict]:
+    """The probe script as a user runs it (``python -m
+    vacv_tpu_torch.profile.probe_i8``), counters reset just before; then
+    the kernel's own device time from the profiler, and the plain version
+    at the 1024³ bf16 shape, which the kernels line reports."""
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.ops.cuda.probe import probe_dot, probe_dot_torch
+    from vacv_tpu_torch.profile import probe_i8
+    from vacv_tpu_torch.utils.perf import profiler_trace
+
+    config.reset_kernel_counts()
+    results = probe_i8.main()
+    torch.cuda.synchronize()
+    launches = config.kernel_count("probe_dot")
+    log(f"[main] probe script: {len(results)} cases, probe_dot launches={launches}, "
+        f"probe_dot_torch launches={config.kernel_count('probe_dot_torch')}")
+    require(launches > 0 and config.kernel_count("probe_dot_torch") == 0, "probe launches")
+    require(all(r["ok"] is not False for r in results), "probe script check failed")
+    for r in results:
+        log(f"[time] probe {r['label']} {r['m']}x{r['k']}x{r['n']} reps={r['reps']}: "
+            f"{r['us']:.3f} us/call, {r['rate'] * 1e-12:.2f} T/s = {100 * r['peak_share']:.2f}% "
+            f"of peak, bound {r['bound_us']:.3f} us, library {r['library_us']:.3f} us [{card}]")
+    # The kernel alone: the profiler's device time per launch, against the
+    # event slope (which includes the host's launch cost where that is
+    # longer than the kernel).
+    for m, k, n, reps, dt in ((96, 128, 2048, 64, torch.bfloat16),
+                              (96, 128, 2048, 64, torch.int8),
+                              (1024, 1024, 1024, 32, torch.bfloat16)):
+        a, b = probe_operands(m, k, n, reps, dt, seed=95)
+        probe_dot(a, b, reps)
+        torch.cuda.synchronize()
+        with profiler_trace("build/probe_trace") as prof:
+            for _ in range(20):
+                probe_dot(a, b, reps)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if "probe_kernel" in e.key]
+        total = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                    for e in dev)
+        count = sum(e.count for e in dev)
+        flops = 2 * m * k * n * reps
+        if not count:
+            log(f"[time] probe {m}x{k}x{n} reps={reps} {dt}: the profiler recorded no launch")
+            continue
+        per_us = total / count
+        log(f"[time] probe {m}x{k}x{n} reps={reps} {dt}: profiler device time "
+            f"{per_us:.3f} us/launch over {count} launches = "
+            f"{flops / per_us * 1e-6:.2f} T/s [{card}]")
+    big = next(r for r in results if r["label"] == "bf16 1024^3")
+    a, b = probe_operands(1024, 1024, 1024, 32, torch.bfloat16, seed=96)
+    p_ms = ms_per_call(lambda: probe_dot_torch(a, b, 32), 3)
+    log(f"[time] probe plain version (float64) bf16 1024^3 reps=32: {p_ms:.4f} ms/call [{card}]")
+    return launches, timing(big["us"] / 1e3, p_ms, big["bound_us"] / 1e3, "operations",
+                            big["library_us"] / 1e3)
+
+
+def harness_tests():
+    """The five BASELINE configs (benchmarks/baseline_configs.py:53-186)
+    as CvProfile tests: "ours" is the port on the card through its entry
+    points, "ref" the port's plain torch chain on the CPU (the host role
+    OpenCV plays in the reference; the card's host has no OpenCV
+    requirement)."""
+    import time
+
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+    from vacv_tpu_torch.profile import TestFuncInfo
+    from vacv_tpu_torch.utils.io import bgr2nv21_numpy
+    from vacv_tpu_torch.utils.perf import device_time
+
+    def img(h, w, seed):
+        return np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+    def pair(fn, host, iters=8):
+        dev = torch.from_numpy(host).cuda()
+
+        def run():
+            with config.backend("torch"), config.device("cpu"):
+                t0 = time.perf_counter()
+                ref = fn(torch.from_numpy(host))
+                ref_ms = (time.perf_counter() - t0) * 1e3
+            sec = device_time(lambda i, b: fn(b), dev, iters=iters, base_iters=2)
+            out = fn(dev)
+            require(out.device.type == "cuda" and bool(torch.isfinite(out).all()), "harness output")
+            return [ref_ms, sec * 1e3, cosine(out, ref), 1.0]
+
+        return run
+
+    rect1 = vt.VRect(8, 6, 168, 138)
+    ladder = [((224, 224), vt.INTER_LINEAR), ((512, 512), vt.INTER_CUBIC),
+              ((1920, 1080), vt.INTER_LINEAR)]
+    pre4 = Preprocessor(PreprocessConfig(crop_rect=vt.VRect(16, 8, 1264, 712), out_size=(224, 224)))
+    pre5 = Preprocessor(PreprocessConfig(crop_rect=vt.VRect(*RECT5), warp=(M5, WARP5),
+                                         out_size=(OUT, OUT)))
+
+    def c1(b):
+        return vt.resize(vt.crop(vt.Image(b), rect1), (128, 96)).data
+
+    def c2(b):
+        return vt.cvt_color(b, vt.COLOR_YUV2BGR_NV21).change_layout(vt.CHW).change_dtype(
+            torch.float32).data
+
+    def c3(b):
+        f = vt.Image(b).change_dtype(torch.float32)
+        return torch.cat([torch.cat(vt.mean_stddev(vt.resize(f, wh, interpolation=mode)))
+                          for wh, mode in ladder])
+
+    nv2 = bgr2nv21_numpy(img(144, 176, 22)).reshape(144 * 3 // 2, 176)
+    return [
+        TestFuncInfo("cfg1_crop_resize_qcif", pair(c1, img(144, 176, 11))),
+        TestFuncInfo("cfg2_yuv_dtype_layout_qcif", pair(c2, nv2)),
+        TestFuncInfo("cfg3_resize_ladder_stats", pair(c3, img(360, 640, 33))),
+        TestFuncInfo("cfg4_fused_normalize_720p", pair(pre4, img(720, 1280, 44))),
+        TestFuncInfo("cfg5_warp_pipeline", pair(pre5.batch, np.stack([img(H5, W5, 55)] * BATCH5),
+                                                iters=6)),
+    ]
+
+
+def phase_harness(card: str) -> dict:
+    """CvProfile over the five BASELINE configs; every row must pass at
+    the 1e-4 bar, and the kernels of configs 2, 4 and 5 must have run."""
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.profile import CvProfile
+
+    config.reset_kernel_counts()
+    prof = CvProfile(k_test_times=2, k_log_batch_size=2)
+    prof.profile(harness_tests(), verbose=True)
+    torch.cuda.synchronize()
+    names = ("yuv2bgr", "preprocess_fused", "warp_affine", "normalize_fused")
+    launches = {k: config.kernel_count(k) for k in names}
+    log(f"[harness] launches={launches} [{card}]")
+    ok = prof.print_results()
+    Path("build").mkdir(exist_ok=True)
+    prof.save_results("build/harness_baseline_configs.json")
+    require(ok, "a BASELINE config failed the 1e-4 bar")
+    require(all(launches.values()), f"the harness did not run every kernel: {launches}")
+    return launches
+
+
+def phase_frontend(card: str) -> dict:
+    """The flow of examples/slam_frontend.py on one card: eight synthetic
+    720p frames written as PNGs and read back by ``BatchLoader`` (host
+    batch and ``to_device``), NV21 synthesis by the native host library,
+    then the NV21 Preprocessor on one buffer and on the batch, and the
+    BGR batch from ``to_device`` through the fused BGR route; timed with
+    ``utils/perf.time_fn`` and held against the plain chain."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch import config, native
+    from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+    from vacv_tpu_torch.utils.io import bgr2nv21
+    from vacv_tpu_torch.utils.loader import BatchLoader
+    from vacv_tpu_torch.utils.perf import time_fn
+
+    n, h, w = 8, 720, 1280
+    rng = np.random.default_rng(0)
+    folder = Path("build/frontend")
+    folder.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i in range(n):
+        p = folder / f"frame{i}.png"
+        p.write_bytes(vt.imencode(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), ".png"))
+        paths.append(str(p))
+    log(f"[frontend] native host library: available={native.available()} "
+        f"jpeg={native.has_jpeg()} ({native.library_path().name})")
+    require(native.available(), f"the native host library did not build: {native.build_error}")
+    rect = vt.VRect(w // 8, h // 8, w - w // 8, h - h // 8)
+    pre_nv = Preprocessor(PreprocessConfig(color_code=vt.COLOR_YUV2BGR_NV21, crop_rect=rect,
+                                           out_size=(OUT, OUT)))
+    pre_bgr = Preprocessor(PreprocessConfig(crop_rect=rect, out_size=(OUT, OUT)))
+    require(pre_nv.describe_route((h * 3 // 2, w)) == "cuda_fused_nv", "frontend NV route")
+    require(pre_bgr.describe_route((h, w, 3)) == "cuda_fused", "frontend BGR route")
+
+    config.reset_kernel_counts()
+    loader = BatchLoader(paths, batch_size=n, num_threads=4)
+    host = next(iter(loader))
+    dev = next(iter(loader.to_device()))
+    nv_batch = np.stack([bgr2nv21(f).reshape(h * 3 // 2, w) for f in host])
+    one = pre_nv(nv_batch[0])
+    out_nv = pre_nv.batch(nv_batch)
+    out_bgr = pre_bgr.batch(dev)
+    torch.cuda.synchronize()
+    require(all(o.device == torch.device("cuda", 0) for o in (one, out_nv, out_bgr)),
+            "a numpy batch did not come back on cuda:0")
+    names = ("native_bgr2nv21", "numpy_bgr2nv21", "preprocess_fused_nv", "preprocess_fused")
+    launches = {k: config.kernel_count(k) for k in names}
+    log(f"[main] frontend launches={launches} for {n} frames")
+    require(dev.device.type == "cuda" and torch.equal(dev.cpu(), torch.from_numpy(host)),
+            "to_device batch differs from the host batch")
+    require(launches == {"native_bgr2nv21": n, "numpy_bgr2nv21": 0, "preprocess_fused_nv": 2,
+                         "preprocess_fused": 1}, f"frontend launches {launches}")
+    with config.backend("torch"):
+        refs = [pre_nv(nv_batch[0])[None], pre_nv.batch(nv_batch), pre_bgr.batch(dev)]
+    hold_to_chain("frontend NV one", [one[None]], refs[:1], (1, 3, OUT, OUT))
+    hold_to_chain("frontend NV batch", [out_nv], refs[1:2], (n, 3, OUT, OUT))
+    hold_to_chain("frontend BGR to_device", [out_bgr], refs[2:], (n, 3, OUT, OUT))
+    log(f"[frontend] single-frame output: {tuple(one.shape)} mean={one.mean().item():.5f} "
+        f"std={one.std().item():.4f}")
+    best, mean, _ = time_fn(pre_nv.batch, nv_batch, iters=5, warmup=2)
+    log(f"[time] frontend NV batch from numpy (copy to the card included): best {best:.3f} "
+        f"mean {mean:.3f} ms/batch of {n} [{card}]")
+    nv_dev = torch.from_numpy(nv_batch).cuda()
+    best, mean, _ = time_fn(pre_nv.batch, nv_dev, iters=5, warmup=2)
+    log(f"[time] frontend NV batch on the card: best {best:.3f} mean {mean:.3f} ms/batch of "
+        f"{n} [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -895,6 +1163,7 @@ def main() -> int:
         "normalize_fused": phase_compare_normalize(),
         "warp_affine": phase_compare_warp(),
         "match_corr": phase_compare_corr(),
+        "probe_dot": phase_compare_probe(),
     }
     # Each main path is driven with the counts set to 0 just before it
     # and read just after (inside each phase).
@@ -909,8 +1178,15 @@ def main() -> int:
     launches["match_corr"] = tracking["match_corr"]
     launches["yuv2bgr"] += tracking["yuv2bgr"]
     launches["preprocess_fused_nv"] += tracking["preprocess_fused_nv"]
+    launches["probe_dot"], probe_times = phase_main_probe(card)
+    harness = phase_harness(card)
+    for k in ("yuv2bgr", "preprocess_fused", "warp_affine", "normalize_fused"):
+        launches[k] += harness[k]
+    frontend = phase_frontend(card)
+    launches["preprocess_fused"] += frontend["preprocess_fused"]
+    launches["preprocess_fused_nv"] += frontend["preprocess_fused_nv"]
     times = {"preprocess_fused": phase_time(card), **phase_time_nv(card),
-             **phase_time_warp_corr(card)}
+             **phase_time_warp_corr(card), "probe_dot": probe_times}
     record = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -918,8 +1194,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": errs[name],
-        "ms": times[name][0],
-        "plain_ms": times[name][1],
+        **times[name],
     } for name, (source, replaces) in KERNELS.items()]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

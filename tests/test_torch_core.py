@@ -20,6 +20,16 @@ from vacv_tpu.utils import compare as jcompare
 from vacv_tpu_torch.core import types as ttypes
 from vacv_tpu_torch.ops.crop import crop_dynamic as t_crop_dynamic
 from vacv_tpu_torch.utils import compare as tcompare
+from vacv_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
 
 ENUMS = ["Layout", "InterMode", "BorderMode", "MatchMode", "ColorCode", "NormalAlg"]
 
@@ -167,8 +177,12 @@ def test_import_loads_neither_jax_nor_triton():
         "vacv_tpu_torch.ops.cuda, vacv_tpu_torch.ops.cuda.yuv2bgr, "
         "vacv_tpu_torch.ops.cuda.normalize, vacv_tpu_torch.ops.cvt_color, "
         "vacv_tpu_torch.ops.cuda.warp_affine, vacv_tpu_torch.ops.cuda.match_template, "
-        "vacv_tpu_torch.ops.fused, vacv_tpu_torch.utils; "
-        "bad = [m for m in ('jax', 'triton', 'vacv_tpu') if m in sys.modules]; "
+        "vacv_tpu_torch.ops.fused, vacv_tpu_torch.utils, vacv_tpu_torch.utils.perf, "
+        "vacv_tpu_torch.utils.io, vacv_tpu_torch.utils.loader, vacv_tpu_torch.native, "
+        "vacv_tpu_torch.ops.imencode, vacv_tpu_torch.ops.cuda.probe, "
+        "vacv_tpu_torch.profile, vacv_tpu_torch.profile.runner, "
+        "vacv_tpu_torch.profile.probe_i8; "
+        "bad = [m for m in ('jax', 'triton', 'vacv_tpu', 'benchmarks') if m in sys.modules]; "
         "assert not bad, bad"
     )
     root = Path(__file__).resolve().parents[1]
@@ -183,7 +197,7 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
     import types
 
     from vacv_tpu_torch.ops.cuda import (
-        build, match_template, normalize, preprocess, warp_affine, yuv2bgr,
+        build, match_template, normalize, preprocess, probe, warp_affine, yuv2bgr,
     )
 
     c_types = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong,
@@ -202,7 +216,7 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
     fake = types.SimpleNamespace(**{name: Fn() for name in declared})
     monkeypatch.setattr(build, "library", lambda: types.SimpleNamespace(lib=fake))
     wrappers = (normalize._entry_points, preprocess._entry_points, yuv2bgr._entry_points,
-                warp_affine._entry_points, match_template._entry_points)
+                warp_affine._entry_points, match_template._entry_points, probe._entry_points)
     for entry in wrappers:
         entry.cache_clear()
     try:
@@ -215,3 +229,69 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
     assert set(bound) == set(declared) - {"vacv_cuda_error_string"}
     for name, argtypes in bound.items():
         assert argtypes == declared[name], name
+
+
+# ---- the default device: the card unless the caller asks for the CPU ----
+
+def test_numpy_input_lands_on_the_default_device():
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.core.image import as_tensor
+
+    a = np.zeros((4, 6, 3), np.uint8)
+    assert config.default_device() == "cpu"  # this file's fixture asked for it
+    assert as_tensor(a).device.type == "cpu"
+    assert vt.as_image(a).data.device.type == "cpu"
+    t = torch.zeros(2)
+    assert as_tensor(t) is t  # a tensor stays where it lies
+    with config.device("cuda"):
+        assert config.default_device() == "cuda"
+        assert as_tensor(t) is t
+        with config.device("cpu"):
+            assert vt.normalize(a.astype(np.float32)).data.device.type == "cpu"
+    with pytest.raises(ValueError):
+        config.set_default_device("tpu")
+
+
+def test_without_a_card_the_default_raises(monkeypatch):
+    """No card and no request for the CPU: a clear RuntimeError naming
+    config.device("cpu"), never a quiet CPU run."""
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.zeros((8, 10, 3), np.uint8)
+    with config.device("cuda"):
+        for call in (lambda: vt.normalize(a), lambda: vt.cvt_color(a, vt.COLOR_BGR2RGB),
+                     lambda: vt.resize(a, (4, 4)),
+                     lambda: Preprocessor(PreprocessConfig(out_size=(4, 4))).batch(a[None])):
+            with pytest.raises(RuntimeError, match=r'config\.device\("cpu"\)'):
+                call()
+        pre = Preprocessor(PreprocessConfig(out_size=(4, 4)))
+        assert pre.device.type == "cuda"
+        assert pre.describe_route((8, 10, 3)) == "cuda_fused"
+    # Asked for explicitly, the CPU runs.
+    assert Preprocessor(PreprocessConfig(out_size=(4, 4)), device="cpu").batch(
+        a[None]).device.type == "cpu"
+
+
+def test_input_device_takes_the_card_when_there_is_one(monkeypatch):
+    from vacv_tpu_torch import config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with config.device("cuda"):
+        assert config.input_device() == torch.device("cuda")
+    assert config.input_device("cuda:0") == torch.device("cuda", 0)
+    assert config.input_device() == torch.device("cpu")
+
+
+def test_facade_has_every_name_of_the_jax_package():
+    missing = [n for n in vc.__all__ if not hasattr(vt, n)]
+    assert not missing
+    assert sorted(vc.__all__) == sorted(vt.__all__)
+    consts = [n for n in dir(vc) if n.split("_")[0] in ("COLOR", "INTER", "BORDER", "TM", "WARP")]
+    assert len(consts) == 36
+    for n in consts:
+        assert int(getattr(vt, n)) == int(getattr(vc, n)), n
+    for n in ("VPoint3", "VAngle", "VEyeInfo", "SimpleSize", "ExtreSize", "IndexValue"):
+        assert [f for f in getattr(vt, n).__dataclass_fields__] == [
+            f for f in getattr(vc, n).__dataclass_fields__]

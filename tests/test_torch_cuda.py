@@ -7,7 +7,9 @@ preprocess kernels to cosine >= 1-1e-6 and max-abs < 0.05 normalized,
 and at most 1 LSB on under 1e-3 of the values with ``normalize=False``;
 yuv2bgr bit-exact; normalize to cosine >= 1-1e-6 and max-abs < 1e-4; the
 warp kernel bit-exact on u8 and within 5e-3 on f32; the correlation kernel
-within 1e-5 of the largest response magnitude.
+within 1e-5 of the largest response magnitude; the tensor-core probe
+bit-exact with the probe's integer operands and, on random bf16 operands,
+within 1e-5 of the largest sum of product magnitudes.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from vacv_tpu_torch.core.types import ColorCode, InterMode, VRect
 from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
 from vacv_tpu_torch.ops.cuda.match_template import corr_planes, corr_planes_torch
 from vacv_tpu_torch.ops.cuda.normalize import normalize_fused
+from vacv_tpu_torch.ops.cuda.probe import probe_dot, probe_dot_torch
 from vacv_tpu_torch.ops.cuda.preprocess import (
     preprocess_fused_batch,
     preprocess_fused_batch_torch,
@@ -433,3 +436,73 @@ def test_match_template_on_the_card(cuda, mode):
     _, _, _, (x, y) = vt.min_max_loc(got)
     if mode != vt.TM_SQDIFF and mode != vt.TM_SQDIFF_NORMED and mode != vt.TM_CCORR:
         assert (int(x), int(y)) == (200, 100)
+
+
+# ---- the tensor-core probe ------------------------------------------------
+
+PROBE_SHAPES = [  # (m, k, n, reps): every shape of benchmarks/probe_i8.py, then ragged ones
+    (96, 128, 2048, 64), (96, 32, 1024, 64), (96, 64, 1024, 64), (96, 96, 1024, 64),
+    (96, 128, 1024, 64), (1024, 1024, 1024, 32),
+    (37, 64, 75, 5), (17, 96, 9, 1), (70, 160, 130, 70), (1, 32, 8, 2), (65, 224, 129, 3),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8], ids=["bf16", "i8"])
+@pytest.mark.parametrize("m,k,n,reps", PROBE_SHAPES)
+def test_probe_kernel_is_bit_exact_on_the_probe_operands(cuda, dtype, m, k, n, reps):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(m + k + n + reps)
+    a = torch.randint(-100, 100, (m + reps, k), generator=g, device=cuda).to(dtype)
+    b = torch.randint(-2, 3, (k, n), generator=g, device=cuda).to(dtype)
+    k0 = config.kernel_count("probe_dot")
+    got = probe_dot(a, b, reps)
+    torch.cuda.synchronize()
+    assert config.kernel_count("probe_dot") == k0 + 1
+    want = probe_dot_torch(a, b, reps)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n,reps", [(96, 128, 2048, 64), (45, 48, 77, 7)])
+def test_probe_kernel_on_random_bf16(cuda, m, k, n, reps):
+    """f32 sums of K·reps products in another order than the f64 plain
+    version: within 1e-5 of the largest Σ|a||b| (worst case K·reps·2^-24)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    a = torch.randn(m + reps, k, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=g, device=cuda).to(torch.bfloat16)
+    got = probe_dot(a, b, reps).double()
+    want = probe_dot_torch(a, b, reps).double()
+    mag = probe_dot_torch(a.abs(), b.abs(), reps).double().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * mag
+
+
+def test_probe_kernel_reads_a_shifted_window(cuda):
+    a2 = torch.randint(-100, 100, (96 + 64 + 1, 128), device=cuda).to(torch.int8)
+    b = torch.randint(-2, 3, (128, 256), device=cuda).to(torch.int8)
+    for i in (0, 1):
+        win = a2[i : i + 96 + 64]
+        assert torch.equal(probe_dot(win, b, 64), probe_dot_torch(win, b, 64))
+
+
+def test_probe_device_time_is_positive_on_the_card(cuda):
+    from vacv_tpu_torch.profile import probe_i8
+    from vacv_tpu_torch.utils.perf import device_time
+
+    a2 = torch.randint(-100, 100, (96 + 64 + 1, 128), device=cuda).to(torch.int8)
+    b = torch.randint(-2, 3, (128, 1024), device=cuda).to(torch.int8)
+    assert device_time(probe_i8.step, a2, b, 64) > 0
+
+
+def test_numpy_batch_goes_to_the_card_by_default(cuda):
+    """Preprocessor(cfg) and the facade ops put a numpy input on cuda:0."""
+    cfg = PreprocessConfig(crop_rect=RECT, out_size=OUT)
+    pre = Preprocessor(cfg)
+    assert pre.describe_route((360, 640, 3)) == "cuda_fused"
+    batch = batch_on("cpu").numpy()
+    k0 = config.kernel_count("preprocess_fused")
+    out = pre.batch(batch)
+    assert out.device == cuda and config.kernel_count("preprocess_fused") == k0 + 1
+    assert vt.normalize(batch[0].astype(np.float32)).data.device == cuda
+    with config.device("cpu"):
+        assert Preprocessor(cfg).batch(batch).device.type == "cpu"

@@ -24,6 +24,15 @@ from vacv_tpu_torch.ops.cvt_color import nv_to_bgr_planes, nv_to_bgr_planes_torc
 
 from oracle import nv_to_bgr as oracle_nv_to_bgr
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
+
 NV_CODES = [
     "COLOR_YUV2RGB_NV12", "COLOR_YUV2BGR_NV12", "COLOR_YUV2RGB_NV21", "COLOR_YUV2BGR_NV21",
     "COLOR_YUV2RGBA_NV12", "COLOR_YUV2BGRA_NV12", "COLOR_YUV2RGBA_NV21", "COLOR_YUV2BGRA_NV21",
@@ -119,8 +128,17 @@ def test_short_vu_plane_raises():
 @pytest.mark.parametrize("code", ["COLOR_YUV2BGR_YV12", "COLOR_GRAY2BGR", "COLOR_BGR2RGB",
                                   "COLOR_BGR2HSV"])
 def test_codes_not_on_this_path_raise(code):
-    with pytest.raises(NotImplementedError, match="queue 1 #12"):
-        vt.cvt_color(np.zeros((6, 4, 3), np.uint8), getattr(ColorCode, code))
+    """Codes off the NV path convert as the JAX package does (HSV within
+    1 LSB); only an integer that is no colour code raises."""
+    src = np.random.default_rng(3).integers(0, 256, (6, 4, 3), dtype=np.uint8)
+    if code == "COLOR_YUV2BGR_YV12":
+        src = src[..., 0]  # a (6, 4) stacked buffer: a 4x4 frame
+    want = np.asarray(vc.cvt_color(src, getattr(vc.ColorCode, code)).data)
+    got = vt.cvt_color(src, getattr(ColorCode, code)).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got.astype(int) - want).max() <= (1 if "HSV" in code else 0)
+    with pytest.raises(ValueError):
+        vt.cvt_color(src, 12)
 
 
 def test_wrapper_on_cpu_counts_plain_version():
@@ -155,3 +173,115 @@ def test_roundtrip_of_a_synthesized_frame(bgr_640x360):
     buf = bgr2nv21_numpy(bgr_640x360).reshape(540, 640)
     out = vt.cvt_color(buf, ColorCode.COLOR_YUV2BGR_NV21).numpy()
     assert abs(cosine_similarity(out, bgr_640x360) - 1) < 5e-4
+
+
+# ---- the codes off the NV path: shuffles, gray, YCrCb/YUV/HSV, YV12 ----
+
+SHUFFLE_CODES = [
+    "COLOR_BGR2BGRA", "COLOR_BGRA2BGR", "COLOR_BGR2RGBA", "COLOR_RGBA2BGR", "COLOR_BGR2RGB",
+    "COLOR_BGRA2RGBA", "COLOR_BGR2GRAY", "COLOR_RGB2GRAY", "COLOR_GRAY2BGR", "COLOR_GRAY2BGRA",
+    "COLOR_BGRA2GRAY", "COLOR_RGBA2GRAY",
+]
+SPACE_CODES = [
+    "COLOR_BGR2YCrCb", "COLOR_RGB2YCrCb", "COLOR_YCrCb2BGR", "COLOR_YCrCb2RGB",
+    "COLOR_BGR2YUV", "COLOR_RGB2YUV", "COLOR_YUV2BGR", "COLOR_YUV2RGB",
+    "COLOR_BGR2HSV", "COLOR_RGB2HSV", "COLOR_HSV2BGR", "COLOR_HSV2RGB",
+]
+
+
+def hwc_for(code, seed, h=37, w=54, dtype=np.uint8):
+    """An input the code takes: 4 channels for the *A2* codes, a 2-D gray
+    plane for GRAY2*, H in 0..179 for HSV2*, else 3 channels."""
+    rng = np.random.default_rng(seed)
+    c = 4 if ("A2" in code and not code.startswith("COLOR_GRAY")) else 3
+    x = rng.integers(0, 256, (h, w, c)).astype(dtype)
+    if code.startswith("COLOR_GRAY"):
+        x = x[..., 0]
+    if code.startswith("COLOR_HSV"):
+        x[..., 0] = rng.integers(0, 180, (h, w))
+    return x
+
+
+def jax_and_port(code, src):
+    want = np.asarray(vc.cvt_color(src, getattr(vc.ColorCode, code)).data)
+    got = vt.cvt_color(src, getattr(ColorCode, code))
+    assert got.layout == vt.HWC and got.shape == want.shape
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("code", SHUFFLE_CODES)
+def test_shuffle_and_gray_codes_bit_exact_to_jax(code):
+    got, want = jax_and_port(code, hwc_for(code, 10))
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("code", ["COLOR_BGR2GRAY", "COLOR_RGBA2GRAY", "COLOR_BGR2RGBA",
+                                  "COLOR_GRAY2BGRA"])
+def test_float_gray_and_alpha_match_jax(code):
+    """Float inputs: gray is 0.299 R + 0.587 G + 0.114 B in f32, held to
+    1e-4 absolute on values up to 255 (XLA may fuse the three products
+    into FMAs, PyTorch rounds each); alpha is 1.0."""
+    got, want = jax_and_port(code, hwc_for(code, 11, dtype=np.float32))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("code", SPACE_CODES)
+def test_colour_spaces_match_jax(code):
+    """YCrCb and YUV are Q14 integer math: bit-exact.  HSV is float math:
+    within 1 LSB, the count of differing values reported."""
+    got, want = jax_and_port(code, hwc_for(code, 12, h=61, w=97))
+    d = np.abs(got.astype(int) - want.astype(int))
+    if "HSV" not in code:
+        np.testing.assert_array_equal(got, want)
+        return
+    if code.startswith("COLOR_HSV"):
+        assert d.max() <= 1, f"{int((d > 0).sum())} of {d.size} values differ, max {d.max()}"
+    else:  # H wraps at 180: 179 and 0 are 1 apart
+        d[..., 0] = np.minimum(d[..., 0], 180 - d[..., 0])
+        assert d.max() <= 1, f"{int((d > 0).sum())} of {d.size} values differ, max {d.max()}"
+    print(f"{code}: {int((d > 0).sum())} of {d.size} values differ by 1 LSB")
+
+
+def test_hsv_round_trip_and_extremes_match_jax():
+    """Pure greys, pure primaries and black, where the sector rules switch."""
+    px = np.array([[[0, 0, 0], [255, 255, 255], [0, 0, 255], [0, 255, 0], [255, 0, 0],
+                    [128, 128, 128], [1, 0, 0], [0, 1, 1]]], np.uint8)
+    for code in ("COLOR_BGR2HSV", "COLOR_RGB2HSV"):
+        got, want = jax_and_port(code, px)
+        np.testing.assert_array_equal(got, want)
+        back, back_want = jax_and_port(code.replace("2HSV", "").replace("COLOR_", "COLOR_HSV2"),
+                                       got)
+        np.testing.assert_array_equal(back, back_want)
+
+
+@pytest.mark.parametrize("h,w", [(144, 176), (4, 2)])
+def test_yv12_bit_exact_to_jax(h, w):
+    buf = np.random.default_rng(h).integers(0, 256, (h * 3 // 2, w), dtype=np.uint8)
+    got, want = jax_and_port("COLOR_YUV2BGR_YV12", buf)
+    assert got.shape == (h, w, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("code,src_shape", [
+    ("COLOR_BGR2YCrCb", (6, 4)), ("COLOR_BGR2HSV", (6, 4)), ("COLOR_BGR2RGB", (6, 4)),
+])
+def test_codes_refuse_what_jax_refuses(code, src_shape):
+    """A 2-D input for an HWC code, a float input for a Q14 code."""
+    with pytest.raises(ValueError):
+        vt.cvt_color(np.zeros(src_shape, np.uint8), getattr(ColorCode, code))
+    if code != "COLOR_BGR2RGB":
+        with pytest.raises(ValueError):
+            vt.cvt_color(np.zeros((6, 4, 3), np.float32), getattr(ColorCode, code))
+
+
+def test_every_jax_code_is_accepted():
+    """cvt_color takes every code the JAX cvt_color takes."""
+    for code in ColorCode:
+        name = code.name
+        if "NV" in name or "YV12" in name:
+            src = np.zeros((6, 4), np.uint8)
+        else:
+            src = hwc_for(name, 0, h=4, w=6)
+        jax_and_port(name, src)

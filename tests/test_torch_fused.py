@@ -16,6 +16,15 @@ from vacv_tpu import config as jconfig
 from vacv_tpu.utils.compare import cosine_similarity
 from vacv_tpu_torch import config
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
+
 M = np.array([[0.9, 0.04, 3.0], [-0.04, 0.9, 5.0]], np.float32)
 STATS = dict(mean=(104.0, 117.0, 123.0), stddev=(57.1, 57.4, 58.4))
 

@@ -21,6 +21,15 @@ from vacv_tpu import config as jconfig
 from vacv_tpu_torch import config
 from vacv_tpu_torch.ops.cuda.match_template import corr_planes, corr_planes_torch
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
+
 MODES = [vt.TM_SQDIFF, vt.TM_SQDIFF_NORMED, vt.TM_CCORR, vt.TM_CCORR_NORMED, vt.TM_CCOEFF,
          vt.TM_CCOEFF_NORMED]
 NORMED = {vt.TM_SQDIFF_NORMED, vt.TM_CCORR_NORMED, vt.TM_CCOEFF_NORMED}

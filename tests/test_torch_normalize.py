@@ -13,6 +13,16 @@ import vacv_tpu as vc
 import vacv_tpu_torch as vt
 from vacv_tpu.ops.normalize import normalize_jnp
 from vacv_tpu_torch.ops.normalize import normalize_planes, normalize_torch
+from vacv_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
 
 MEAN = (104.0, 117.0, 123.0)
 STD = (57.1, 57.4, 58.4)

@@ -23,6 +23,15 @@ from vacv_tpu_torch.ops.cuda.normalize import normalize_fused
 from vacv_tpu_torch.ops.normalize import normalize_torch
 
 
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
+
+
 def planes(seed, shape, dtype):
     return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8).astype(dtype)
 

@@ -28,6 +28,15 @@ from vacv_tpu_torch.ops.cuda.preprocess import (
     preprocess_fused_nv_batch_torch,
 )
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
+
 H, W = 360, 640
 RECT = (33, 24, 33 + 512, 24 + 224)  # left (odd), top, right, bottom
 OUT = (112, 96)  # (w, h)

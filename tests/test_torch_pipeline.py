@@ -21,6 +21,15 @@ from vacv_tpu_torch import config
 from vacv_tpu_torch.core.types import ColorCode, InterMode, Layout, VRect
 from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
+
 H, W = 360, 640
 RECT = (17, 20, 617, 340)
 
@@ -146,12 +155,15 @@ def test_devices_are_explicit():
 
 
 def test_unported_configs_raise():
-    """NV codes and warp configs are ported; the other colour codes are not."""
+    """Every colour code and warp configs are ported; only an integer that
+    is no colour code (in neither package) raises."""
     Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21, out_size=(224, 224)))
     Preprocessor(PreprocessConfig(warp=(((1, 0, 0), (0, 1, 0)), (64, 64))))
-    with pytest.raises(NotImplementedError, match="queue 1 #12"):
-        Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_BGR2RGB,
-                                      out_size=(224, 224)))
+    Preprocessor(PreprocessConfig(color_code=ColorCode.COLOR_BGR2RGB, out_size=(224, 224)))
+    with pytest.raises(ValueError):
+        Preprocessor(PreprocessConfig(color_code=12, out_size=(224, 224)))
+    with pytest.raises(ValueError):
+        vc.cvt_color(np.zeros((4, 4, 3), np.uint8), 12)
 
 
 @pytest.mark.parametrize("backend", ["auto", "torch"])
@@ -363,3 +375,42 @@ def test_config5_describe_route():
     assert Preprocessor(cubic).describe_route((144, 256, 3)) == "warp_torch"
     with config.backend("torch"):
         assert Preprocessor(cfg).describe_route((144, 256, 3)) == "torch_chain"
+
+
+# ---- colour codes off the NV path: cvt_color first, then the chain ----
+
+COLOR_CONFIGS = {
+    "bgr2rgb": PreprocessConfig(color_code=ColorCode.COLOR_BGR2RGB, crop_rect=VRect(*RECT),
+                                out_size=(112, 96)),
+    "ycrcb_cubic": PreprocessConfig(color_code=ColorCode.COLOR_BGR2YCrCb, out_size=(128, 72),
+                                    interpolation=InterMode.INTER_CUBIC),
+    "gray": PreprocessConfig(color_code=ColorCode.COLOR_BGR2GRAY, crop_rect=VRect(*RECT),
+                             out_size=(112, 96)),
+    "hsv_static": PreprocessConfig(color_code=ColorCode.COLOR_BGR2HSV, out_size=(96, 64),
+                                   mean=(90.0, 100.0, 110.0), stddev=(50.0, 60.0, 70.0)),
+    "rgb_warp": PreprocessConfig(color_code=ColorCode.COLOR_BGR2RGB, crop_rect=VRect(*RECT),
+                                 warp=(((0.9, 0.03, 4.0), (-0.03, 0.9, 2.5)), (256, 144)),
+                                 out_size=(112, 96)),
+    "gray_warp": PreprocessConfig(color_code=ColorCode.COLOR_BGR2GRAY,
+                                  warp=(((0.8, 0.0, 3.0), (0.0, 0.8, 1.0)), (200, 120)),
+                                  out_size=(64, 48)),
+}
+
+
+@pytest.mark.parametrize("name", list(COLOR_CONFIGS))
+@pytest.mark.parametrize("port_backend", ["auto", "torch"])
+def test_non_nv_colour_codes_match_jax_preprocessor(name, port_backend):
+    """Any colour code runs through cvt_color first, as the JAX
+    Preprocessor's chain does (vacv_tpu/models/pipeline.py:34-49)."""
+    cfg = COLOR_CONFIGS[name]
+    batch = frames(20)
+    want = jax_batch(cfg, batch, "jnp")
+    pre = Preprocessor(cfg)
+    with config.backend(port_backend):
+        route = pre.describe_route(batch.shape[1:])
+        got = pre.batch(batch).numpy()
+    if port_backend == "torch":
+        assert route == "torch_chain"
+    else:
+        assert route == ("warp_torch" if cfg.warp is not None else "torch_chain")
+    assert_close(got, want)

@@ -26,6 +26,15 @@ from vacv_tpu_torch.ops.cuda.preprocess import (
     preprocess_fused_batch_torch,
 )
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
+
 H, W = 360, 640
 RECT = (17, 20, 17 + 600, 20 + 320)  # left, top, right, bottom
 OUT = (112, 96)  # (w, h)

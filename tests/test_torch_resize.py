@@ -16,6 +16,16 @@ import vacv_tpu as vc
 import vacv_tpu_torch as vt
 from vacv_tpu.ops.pallas.preprocess import _resize_weights as j_resize_weights
 from vacv_tpu_torch.ops.cuda.preprocess import dense_from_taps, tap_table
+from vacv_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
 
 jr = importlib.import_module("vacv_tpu.ops.resize")
 tr = importlib.import_module("vacv_tpu_torch.ops.resize")

@@ -20,6 +20,15 @@ from vacv_tpu import config as jconfig
 from vacv_tpu_torch import config
 from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port puts numpy inputs on the card by default; these tests ask
+    for the CPU."""
+    with config.device("cpu"):
+        yield
+
+
 H, W = 40, 56
 OUT = (48, 36)  # (w, h)
 MATRICES = {

@@ -14,6 +14,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from .. import config
 from .types import Layout
 
 
@@ -77,15 +78,19 @@ class Image:
         return self.data.detach().cpu().numpy()
 
 
-def as_tensor(x) -> torch.Tensor:
-    """A tensor as it is, or a numpy array / sequence as a CPU tensor."""
+def as_tensor(x, device=None) -> torch.Tensor:
+    """A tensor as it is, where it lies; a numpy array / sequence as a
+    tensor on ``device``, by default ``config.default_device()`` (the
+    card unless the caller asked for the CPU; RuntimeError when the card
+    is asked for and there is none)."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.from_numpy(np.ascontiguousarray(x))
+    return torch.from_numpy(np.ascontiguousarray(x)).to(config.input_device(device))
 
 
 def as_image(x, layout: Layout = Layout.HWC) -> Image:
-    """Coerce a tensor / array / Image to an ``Image``."""
+    """Coerce a tensor / array / Image to an ``Image`` (a numpy array goes
+    to the default device, see ``as_tensor``)."""
     if isinstance(x, Image):
         return x
     return Image(as_tensor(x), layout)

@@ -12,10 +12,12 @@ one call of the warp kernel's wrapper (``ops/cuda/warp_affine.py``) and
 runs the per-frame tail (resize → layout → f32 → normalize).  Each
 wrapper is the CUDA kernel for a CUDA tensor and its plain PyTorch
 version for a CPU tensor.  Anything else runs the chain of ops frame by
-frame; an NV chain decodes straight to CHW planes first.
+frame; an NV chain decodes straight to CHW planes first, any other
+colour code goes through ``cvt_color``.
 
-Devices are explicit: a tensor is processed on the device it lies on; a
-numpy input goes to the ``device`` the Preprocessor was given.
+Devices: a tensor is processed on the device it lies on; a numpy input
+goes to the ``device`` the Preprocessor was given, by default
+``config.default_device()``: the card unless the caller asked for the CPU.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from ..ops.cuda.preprocess import (
     INTERP_MODES, preprocess_fused_batch, preprocess_fused_nv_batch,
 )
 from ..ops.cuda.warp_affine import warp_planes_batch
-from ..ops.cvt_color import nv_code, nv_decode_channels
+from ..ops.cvt_color import cvt_color, nv_code, nv_decode_channels
 from ..ops.dtype import as_torch_dtype
 from ..ops.normalize import normalize
 from ..ops.resize import resize
@@ -42,9 +44,11 @@ _FUSED_INTERP = {mode: name for name, mode in INTERP_MODES.items()}
 
 
 def _decode_color(img: Image, code) -> Image:
-    """Pipeline-internal NV decode that stays planar: the channel planes
-    stack straight into a CHW Image, so no HWC interleave is made only
-    to be transposed back."""
+    """Pipeline-internal colour decode.  NV codes stay planar: the channel
+    planes stack straight into a CHW Image, so no HWC interleave is made
+    only to be transposed back.  Any other code is ``cvt_color``'s."""
+    if nv_code(code) is None:
+        return cvt_color(img, code)
     return Image(torch.stack(nv_decode_channels(img.data, code), dim=0), Layout.CHW)
 
 
@@ -52,8 +56,8 @@ def _decode_color(img: Image, code) -> Image:
 class PreprocessConfig:
     """Declarative preprocessing recipe (all fields static)."""
 
-    # Colour conversion applied first; the input is then the stacked
-    # (H*3//2, W) NV buffer.  NV codes only.
+    # Colour conversion applied first (any ``cvt_color`` code); for an NV
+    # code the input is the stacked (H*3//2, W) NV buffer.
     color_code: ColorCode | None = None
     # Optional crop ROI in source coordinates.
     crop_rect: VRect | None = None
@@ -73,17 +77,17 @@ class PreprocessConfig:
 
 class Preprocessor:
     """Runs a ``PreprocessConfig`` on HWC u8 frames, or on stacked
-    (H·3/2, W) u8 NV buffers when ``color_code`` is set.
+    (H·3/2, W) u8 NV buffers when ``color_code`` is an NV code.
 
     ``__call__`` takes one frame, ``batch`` a batch of them; both return
     the network-ready float32 tensor.
     """
 
-    def __init__(self, cfg: PreprocessConfig, device="cpu"):
+    def __init__(self, cfg: PreprocessConfig, device=None):
         if cfg.color_code is not None:
-            nv_code(cfg.color_code)  # NotImplementedError for a non-NV code
+            ColorCode(cfg.color_code)  # ValueError for an unknown code
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = torch.device(device if device is not None else config.default_device())
 
     def _fused_geometry(self, shape, dtype):
         """(nv, left, top, cw, ch, oh, ow, interp) when the whole
@@ -104,9 +108,12 @@ class Preprocessor:
             return None
         nv = None
         if cfg.color_code is not None:
-            # The fused NV kernel is linear only and makes no alpha plane
-            # (vacv_tpu/models/pipeline.py:167-176).
-            is_nv12, to_rgb, alpha = nv_code(cfg.color_code)
+            # The fused NV kernel is linear only and makes no alpha plane;
+            # other codes take the chain (vacv_tpu/models/pipeline.py:167-176).
+            flags = nv_code(cfg.color_code)
+            if flags is None:
+                return None
+            is_nv12, to_rgb, alpha = flags
             if alpha or interp != "linear":
                 return None
             nv = (is_nv12, to_rgb)
@@ -216,12 +223,14 @@ class Preprocessor:
         per-frame tail."""
         cfg = self.cfg
         if cfg.color_code is not None:
-            planes = torch.stack([_decode_color(Image(f, Layout.HWC), cfg.color_code).data
-                                  for f in batch])
-        elif batch.ndim == 3:
-            planes = batch[:, None]  # gray frames
+            planes = torch.stack([_decode_color(Image(f, Layout.HWC), cfg.color_code)
+                                  .change_layout(Layout.CHW).data for f in batch])
+            gray = planes.ndim == 3  # e.g. BGR2GRAY
         else:
-            planes = batch.permute(0, 3, 1, 2)  # HWC frames, read through their strides
+            gray = batch.ndim == 3
+            planes = batch if gray else batch.permute(0, 3, 1, 2)  # read through its strides
+        if gray:
+            planes = planes[:, None]
         args = self._crop_args(top)
         if args is not None:
             left, top, cw, ch, static = args
@@ -232,11 +241,7 @@ class Preprocessor:
         m, (w, h) = cfg.warp
         minv = invert_affine(np.asarray([list(r) for r in m], dtype=np.float32))
         out = warp_planes_batch(planes, minv, int(h), int(w))
-        gray = cfg.color_code is None and batch.ndim == 3
         return torch.stack([self._tail(Image(o[0] if gray else o, Layout.CHW)) for o in out])
-
-    def _to_device(self, arr):
-        return arr if isinstance(arr, torch.Tensor) else as_tensor(arr).to(self.device)
 
     def batch(self, arr, top=None):
         """Run the pipeline over (N, H, W, C) frames, or (N, H·3/2, W) NV
@@ -246,7 +251,7 @@ class Preprocessor:
         Python int or a 0-d integer tensor, e.g. from a tracker running
         on the device); the crop keeps its size and is clamped to the
         frame."""
-        arr = self._to_device(arr)
+        arr = as_tensor(arr, self.device)
         if self._warp_route():
             return self._run_warp(arr, top)
         geom = self._fused_geometry(tuple(arr.shape[1:]), arr.dtype)
@@ -256,4 +261,4 @@ class Preprocessor:
 
     def __call__(self, arr):
         """Run the pipeline on one (H, W, C) frame or (H·3/2, W) NV buffer."""
-        return self.batch(self._to_device(arr)[None])[0]
+        return self.batch(as_tensor(arr, self.device)[None])[0]

@@ -8,5 +8,6 @@ from .preprocess import (
     preprocess_fused_nv_batch,
     preprocess_fused_nv_batch_torch,
 )
-from .yuv2bgr import nv_to_bgr
+from .probe import probe_dot, probe_dot_torch
 from .warp_affine import warp_planes_batch, warp_planes_batch_torch
+from .yuv2bgr import nv_to_bgr
