@@ -24,10 +24,13 @@ Phases, each printed as it runs:
    over every interpolation, border, border value and type, four
    matrices, and the flags through ``warp_affine``; the correlation kernel
    against ``conv2d`` (TF32 off), within 1e-5 of the largest response, at
-   four shapes; the tensor-core probe at every shape of
-   benchmarks/probe_i8.py (bf16 and int8, 96x128x2048x64, the int8 K sweep,
-   1024^3x32) and ragged ones, bit-exact on the probe's integer operands,
-   random bf16 within 1e-5 of the largest sum of |a||b|;
+   seven shapes (the channel split, an HWC-strided image, outputs that are
+   no multiple of the tile, 1x1 to 65x65 templates); the tensor-core probe
+   at every shape of benchmarks/probe_i8.py (bf16 and int8,
+   96x128x2048x64, the int8 K sweep, 1024^3x32), the split-reps path and
+   ragged tile edges, bit-exact on the probe's integer operands and the
+   same on a second run, random bf16 within 1e-5 of the largest sum of
+   |a||b|;
 4. main paths, each with the launch counters reset just before and read
    just after: config 4 (``Preprocessor.batch`` on three batches with a
    moving crop top held on the device), the fused NV camera path (the
@@ -43,7 +46,8 @@ Phases, each printed as it runs:
    PyTorch chain;
 5. the harness path: the probe script as a user runs it
    (``vacv_tpu_torch.profile.probe_i8``: its rate, share of peak and a
-   library call per shape, then the profiler's kernel time); ``CvProfile``
+   library call per shape, then the profiler's device time of the kernels
+   and of ``torch.matmul`` / ``torch._int_mm``); ``CvProfile``
    over the five BASELINE configs at their own shapes, the port on the
    card against its plain chain on the CPU, every row at the 1e-4 bar;
    the SLAM front end of ``examples/slam_frontend.py`` (eight 720p frames
@@ -52,7 +56,9 @@ Phases, each printed as it runs:
 6. time: each kernel against its plain version (CUDA-event loop slopes
    of ``utils/perf.device_time``, in turns), its bound (bytes at 3.35
    TB/s or operations at the peak of their type) and one library call for
-   the same function where PyTorch has one, and the main paths.
+   the same function where PyTorch has one, and the main paths; the
+   profiler's device time per call of the correlation, ``conv2d`` and
+   ``grid_sample``, and of one tracking frame by kernel.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -421,11 +427,18 @@ def phase_compare_corr() -> float:
     from vacv_tpu_torch.ops.cuda.match_template import corr_planes, corr_planes_torch
 
     head = None
-    for label, xs, ks, frac in [
-        ("720x1280 u8-derived, 3 ch, 48x48", (3, 720, 1280), (3, 48, 48), False),
-        ("360x640, 3 ch, 32x32", (3, 360, 640), (3, 32, 32), False),
-        ("360x640 fractional f32, 3 ch, 24x20", (3, 360, 640), (3, 24, 20), True),
-        ("720x1280, 1 ch, 7x129", (1, 720, 1280), (1, 7, 129), False),
+    for label, xs, ks, frac, hwc in [
+        ("720x1280 u8-derived, 3 ch, 48x48 (channel split)", (3, 720, 1280), (3, 48, 48), False,
+         True),
+        ("360x640, 3 ch, 32x32", (3, 360, 640), (3, 32, 32), False, False),
+        ("360x640 fractional f32, 3 ch, 24x20", (3, 360, 640), (3, 24, 20), True, False),
+        ("720x1280, 1 ch, 7x129 (no split, six column chunks)", (1, 720, 1280), (1, 7, 129),
+         False, False),
+        ("300x500 HWC-strided, 5 ch, 48x48 (one channel a block)", (5, 300, 500), (5, 48, 48),
+         False, True),
+        ("97x161 fractional, 3 ch, 65x33 (outputs 33x129: tile edges)", (3, 97, 161),
+         (3, 65, 33), True, False),
+        ("100x300, 3 ch, 1x1", (3, 100, 300), (3, 1, 1), False, False),
     ]:
         g = torch.Generator(device="cuda")
         g.manual_seed(xs[1] + ks[2])
@@ -435,6 +448,8 @@ def phase_compare_corr() -> float:
         else:
             x = torch.randint(0, 256, xs, generator=g, device="cuda").to(torch.float32)
             k = torch.randint(0, 256, ks, generator=g, device="cuda").to(torch.float32)
+        if hwc:  # the planes of an interleaved image, as match_template passes them
+            x = x.permute(1, 2, 0).contiguous().permute(2, 0, 1)
         got, want = corr_planes(x, k), corr_planes_torch(x, k)
         exact = torch.nn.functional.conv2d(x.double()[None], k.double()[None])[0, 0]
         torch.cuda.synchronize()
@@ -686,6 +701,28 @@ def ms_per_call(fn, iters: int) -> float:
     return device_time(lambda i: fn(), iters=iters, base_iters=2) * 1e3
 
 
+def device_us(fn, key=None, n=20):
+    """The profiler's device time of ``fn()`` in µs per call: the kernels
+    whose name contains ``key`` (every kernel when None), summed over
+    ``n`` calls; None when the profiler recorded none of them."""
+    from vacv_tpu_torch.utils.perf import profiler_trace
+
+    fn()
+    torch.cuda.synchronize()
+    with profiler_trace("build/device_us") as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and (key is None or key in e.key)]
+    total = sum(getattr(e, "device_time_total", 0) or 0 for e in kernels)
+    return total / n if total else None
+
+
+def fmt_us(us) -> str:
+    return "not recorded" if us is None else f"{us:.2f} us"
+
+
 def timing(k_ms, p_ms, bound_ms, bound_by, library_ms=None) -> dict:
     """A kernel's times for the kernels line (plain floats for JSON)."""
     return dict(ms=float(k_ms), plain_ms=float(p_ms), bound_ms=float(bound_ms),
@@ -853,8 +890,15 @@ def phase_time_warp_corr(card: str) -> dict:
     grid = torch.stack([(2 * sx + 1) / cw - 1, (2 * sy + 1) / ch - 1], -1)
     grid = grid.expand(BATCH5, h_out, w_out, 2).contiguous()
     crop_f = crop.float().contiguous()
-    lib_ms = ms_per_call(lambda: torch.nn.functional.grid_sample(
-        crop_f, grid, mode="bilinear", padding_mode="zeros", align_corners=False), 100)
+
+    def library():
+        return torch.nn.functional.grid_sample(crop_f, grid, mode="bilinear",
+                                               padding_mode="zeros", align_corners=False)
+
+    lib_ms = ms_per_call(library, 100)
+    log(f"[time] warp config 5 profiler device time per call: kernel "
+        f"{fmt_us(device_us(lambda: warp_planes_batch(crop, minv, h_out, w_out)))}, library "
+        f"grid_sample {fmt_us(device_us(library))} [{card}]")
     log(f"[time] warp config 5: the output maps onto {src_px / (ch * cw) * 100:.1f}% of the "
         f"{ch}x{cw} crop; the kernel must move {moved / 1e6:.1f} MB (source "
         f"{BATCH5 * 3 * src_px / 1e6:.1f} MB + out {BATCH5 * 3 * h_out * w_out / 1e6:.1f} MB); "
@@ -880,6 +924,12 @@ def phase_time_warp_corr(card: str) -> dict:
         f"conv2d {lib_ms:.4f} ms/call [{card}]")
     report(f"corr (3, {TRACK_H}, {TRACK_W}) x (3, {TARGET}, {TARGET})", k_ms, p_ms, kr, pr,
            moved, (1, "frames"), card)
+    corr_dev = device_us(lambda: corr_planes(x, k))
+    log(f"[time] corr profiler device time per call {fmt_us(corr_dev)} (corr_kernel "
+        f"{fmt_us(device_us(lambda: corr_planes(x, k), 'corr_kernel'))}, split_sum "
+        f"{fmt_us(device_us(lambda: corr_planes(x, k), 'split_sum'))}); library conv2d "
+        f"{fmt_us(device_us(lambda: torch.nn.functional.conv2d(x[None], k[None]), n=3))} "
+        f"[{card}]")
     bound = max(flops / FP32_TFLOPS / 1e9, moved / HBM_TBPS / 1e9)
     times["match_corr"] = timing(k_ms, p_ms, bound, "operations", lib_ms)
 
@@ -899,7 +949,28 @@ def phase_time_warp_corr(card: str) -> dict:
     track_ms = ms_per_call(lambda: step(frames[1], target), 20)
     log(f"[time] tracking main path (cvt_color, match_template, min_max_loc, fused NV "
         f"preprocess): {track_ms:.4f} ms/frame, {1e3 / track_ms:.1f} frames/s [{card}]")
+    tracking_breakdown(lambda: step(frames[1], target), card)
     return times
+
+
+def tracking_breakdown(run, card: str, n: int = 10) -> None:
+    """One tracking frame's device time by kernel (the profiler over ``n``
+    frames), the largest first."""
+    from vacv_tpu_torch.utils.perf import profiler_trace
+
+    run()
+    torch.cuda.synchronize()
+    with profiler_trace("build/tracking_trace") as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    kernels = [(getattr(e, "device_time_total", 0) or 0, e.count, e.key)
+               for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(t for t, _, _ in kernels) / n
+    log(f"[time] tracking frame profiler device time {total:.2f} us/frame [{card}]")
+    for t, count, key in sorted(kernels, reverse=True)[:8]:
+        log(f"[time]   {t / n:9.2f} us/frame {100 * t / n / total:5.1f}%  {count // n} "
+            f"launches/frame  {key[:90]}")
 
 
 # ---- the harness path: the tensor-core probe, CvProfile, the front end ----
@@ -920,17 +991,25 @@ def phase_compare_probe() -> float:
     random bf16 operands within 1e-5 of the largest sum of product
     magnitudes (f32 sums of K·reps products in another order than the
     f64 plain version; worst case K·reps·2^-24)."""
-    from vacv_tpu_torch.ops.cuda.probe import probe_dot, probe_dot_torch
+    from vacv_tpu_torch.ops.cuda.probe import probe_dot, probe_dot_torch, split_plan
 
     shapes = [(96, 128, 2048, 64, dt) for dt in (torch.bfloat16, torch.int8)]
     shapes += [(96, k, 1024, 64, torch.int8) for k in (32, 64, 96, 128)]
     shapes += [(1024, 1024, 1024, 32, dt) for dt in (torch.bfloat16, torch.int8)]
     shapes += [(37, 64, 75, 5, dt) for dt in (torch.bfloat16, torch.int8)]
     shapes += [(17, 96, 9, 1, dt) for dt in (torch.bfloat16, torch.int8)]
+    # The split-reps path (reps not a multiple of the split; one tile over
+    # sixteen blocks) and ragged tile edges in M, N and K.
+    shapes += [(96, 128, 1024, 67, dt) for dt in (torch.bfloat16, torch.int8)]
+    shapes += [(1, 32, 8, 64, dt) for dt in (torch.bfloat16, torch.int8)]
+    shapes += [(130, 160, 200, 7, torch.bfloat16), (130, 192, 200, 7, torch.int8)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (m, k, n, reps, dt) in enumerate(shapes):
         a, b = probe_operands(m, k, n, reps, dt, seed=80 + i)
-        check(f"probe {m}x{k}x{n} reps={reps} {dt}", probe_dot(a, b, reps),
-              probe_dot_torch(a, b, reps), "exact")
+        label = f"probe {m}x{k}x{n} reps={reps} {dt} splits={split_plan(m, n, reps, sms)}"
+        got = probe_dot(a, b, reps)
+        check(label, got, probe_dot_torch(a, b, reps), "exact")
+        require(torch.equal(probe_dot(a, b, reps), got), f"{label}: differs between runs")
     g = torch.Generator(device="cuda")
     g.manual_seed(90)
     a = torch.randn(96 + 64, 128, generator=g, device="cuda").to(torch.bfloat16)
@@ -947,12 +1026,12 @@ def phase_compare_probe() -> float:
 def phase_main_probe(card: str) -> tuple[int, dict]:
     """The probe script as a user runs it (``python -m
     vacv_tpu_torch.profile.probe_i8``), counters reset just before; then
-    the kernel's own device time from the profiler, and the plain version
-    at the 1024³ bf16 shape, which the kernels line reports."""
+    the profiler's device time per call of the kernels and of the library
+    call, and the plain version at the 1024³ bf16 shape, which the kernels
+    line reports."""
     from vacv_tpu_torch import config
     from vacv_tpu_torch.ops.cuda.probe import probe_dot, probe_dot_torch
     from vacv_tpu_torch.profile import probe_i8
-    from vacv_tpu_torch.utils.perf import profiler_trace
 
     config.reset_kernel_counts()
     results = probe_i8.main()
@@ -966,31 +1045,25 @@ def phase_main_probe(card: str) -> tuple[int, dict]:
         log(f"[time] probe {r['label']} {r['m']}x{r['k']}x{r['n']} reps={r['reps']}: "
             f"{r['us']:.3f} us/call, {r['rate'] * 1e-12:.2f} T/s = {100 * r['peak_share']:.2f}% "
             f"of peak, bound {r['bound_us']:.3f} us, library {r['library_us']:.3f} us [{card}]")
-    # The kernel alone: the profiler's device time per launch, against the
-    # event slope (which includes the host's launch cost where that is
-    # longer than the kernel).
+    # The kernels alone: the profiler's device time per call (the probe
+    # kernel and, for a split tile, the launch that adds the splits),
+    # against the event slope (which includes the host's launch cost where
+    # that is longer than the kernel), and the same for the library call on
+    # the windows laid side by side.
     for m, k, n, reps, dt in ((96, 128, 2048, 64, torch.bfloat16),
                               (96, 128, 2048, 64, torch.int8),
-                              (1024, 1024, 1024, 32, torch.bfloat16)):
+                              (1024, 1024, 1024, 32, torch.bfloat16),
+                              (1024, 1024, 1024, 32, torch.int8)):
         a, b = probe_operands(m, k, n, reps, dt, seed=95)
-        probe_dot(a, b, reps)
-        torch.cuda.synchronize()
-        with profiler_trace("build/probe_trace") as prof:
-            for _ in range(20):
-                probe_dot(a, b, reps)
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages() if "probe_kernel" in e.key]
-        total = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-                    for e in dev)
-        count = sum(e.count for e in dev)
         flops = 2 * m * k * n * reps
-        if not count:
-            log(f"[time] probe {m}x{k}x{n} reps={reps} {dt}: the profiler recorded no launch")
-            continue
-        per_us = total / count
-        log(f"[time] probe {m}x{k}x{n} reps={reps} {dt}: profiler device time "
-            f"{per_us:.3f} us/launch over {count} launches = "
-            f"{flops / per_us * 1e-6:.2f} T/s [{card}]")
+        kernel = device_us(lambda: probe_dot(a, b, reps), "probe_kernel")
+        call = device_us(lambda: probe_dot(a, b, reps))
+        wide, tall = probe_i8.library_operands(a, b, reps)
+        lib = device_us(lambda: probe_i8.library_call(wide, tall))
+        rate = "" if call is None else f" = {flops / call * 1e-6:.2f} T/s"
+        log(f"[time] probe {m}x{k}x{n} reps={reps} {dt}: profiler device time per call "
+            f"{fmt_us(call)}{rate} (probe_kernel {fmt_us(kernel)}); library "
+            f"{'torch._int_mm' if dt == torch.int8 else 'torch.matmul'} {fmt_us(lib)} [{card}]")
     big = next(r for r in results if r["label"] == "bf16 1024^3")
     a, b = probe_operands(1024, 1024, 1024, 32, torch.bfloat16, seed=96)
     p_ms = ms_per_call(lambda: probe_dot_torch(a, b, 32), 3)

@@ -411,6 +411,40 @@ def test_corr_kernel_matches_conv2d(cuda, c, h, w, th, tw, frac):
         assert (got - want).abs().max().item() <= 1e-5 * scale
 
 
+CORR_SIZES = [1, 7, 33, 48, 65]
+
+
+@pytest.mark.parametrize("c", [1, 3, 5])
+@pytest.mark.parametrize("th", CORR_SIZES)
+@pytest.mark.parametrize("tw", CORR_SIZES)
+def test_corr_kernel_template_sizes_and_tile_edges(cuda, c, th, tw):
+    """Every template height and width against the chunks (48 rows, 24
+    columns, padded to 8) and an output that is no multiple of the 32 x 128
+    tile; C = 3 and 5 take the channel split on a small image."""
+    x = rand_on(cuda, (c, th + 40, tw + 150), seed=c * 100 + th, frac=True)
+    k = rand_on(cuda, (c, th, tw), seed=tw, frac=True)
+    got = corr_planes(x, k)
+    exact = torch.nn.functional.conv2d(x.double()[None], k.double()[None])[0, 0]
+    torch.cuda.synchronize()
+    assert got.shape == (41, 151)
+    assert (got.double() - exact).abs().max().item() <= 1e-5 * exact.abs().max().item()
+
+
+@pytest.mark.parametrize("c,th,tw", [(3, 9, 11), (5, 48, 48), (3, 130, 70)])
+def test_corr_kernel_split_channels_and_large_templates(cuda, c, th, tw):
+    """The channel split (``split_plan`` > 1) over a strided HWC image, and a
+    template of 3 x 130 x 70 floats (109 KB), larger than the kernel keeps in
+    shared memory at once: it comes in 48 x 24 chunks like any other."""
+    from vacv_tpu_torch.ops.cuda import match_template as mt
+
+    hwc = rand_on(cuda, (th + 200, tw + 300, c), seed=th + c)
+    k = rand_on(cuda, (c, th, tw), seed=tw + c)
+    assert mt.split_plan(201, 301, c, torch.cuda.get_device_properties(0).multi_processor_count) > 1
+    got = corr_planes(hwc.permute(2, 0, 1), k)
+    exact = torch.nn.functional.conv2d(hwc.permute(2, 0, 1).double()[None], k.double()[None])[0, 0]
+    assert (got.double() - exact).abs().max().item() <= 1e-5 * exact.abs().max().item()
+
+
 def test_corr_kernel_reads_strided_images(cuda):
     hwc = rand_on(cuda, (100, 140, 3), seed=3)
     k = rand_on(cuda, (3, 9, 11), seed=4)
@@ -475,6 +509,29 @@ def test_probe_kernel_on_random_bf16(cuda, m, k, n, reps):
     want = probe_dot_torch(a, b, reps).double()
     mag = probe_dot_torch(a.abs(), b.abs(), reps).double().max().item()
     assert (got - want).abs().max().item() <= 1e-5 * mag
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8], ids=["bf16", "i8"])
+@pytest.mark.parametrize("m,k16,k8,n,reps", [
+    (96, 128, 128, 2048, 64),   # four blocks a tile
+    (96, 128, 128, 1024, 67),   # eight, reps not a multiple of the split
+    (96, 128, 128, 2048, 1),    # one rep: no split
+    (1, 32, 32, 8, 64),         # one row, one tile: sixteen blocks
+    (17, 96, 96, 9, 24),
+    (130, 160, 192, 200, 7),    # ragged M, N and K
+])
+def test_probe_kernel_split_and_edge_shapes(cuda, dtype, m, k16, k8, n, reps):
+    """The split path (the reps of a tile over several blocks, summed in a
+    second launch), tile edges in M, N and K: bit-exact and the same on
+    every run."""
+    k = k16 if dtype == torch.bfloat16 else k8
+    g = torch.Generator(device=cuda)
+    g.manual_seed(m * 7 + k + n + reps)
+    a = torch.randint(-100, 100, (m + reps, k), generator=g, device=cuda).to(dtype)
+    b = torch.randint(-2, 3, (k, n), generator=g, device=cuda).to(dtype)
+    got = probe_dot(a, b, reps)
+    assert torch.equal(got, probe_dot_torch(a, b, reps))
+    assert torch.equal(probe_dot(a, b, reps), got)
 
 
 def test_probe_kernel_reads_a_shifted_window(cuda):

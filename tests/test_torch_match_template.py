@@ -155,3 +155,23 @@ def test_corr_wrapper_rejects_what_the_kernel_does_not_take():
         corr_planes(img, torch.zeros((1, 4, 4)))
     np.testing.assert_array_equal(corr_planes(img, torch.ones((3, 4, 4))).numpy(),
                                   corr_planes_torch(img, torch.ones((3, 4, 4))).numpy())
+
+
+@pytest.mark.parametrize("h_out,w_out,c,sms,splits", [
+    (673, 1233, 3, 132, 3),   # 720p, 48 x 48: 22 x 10 = 220 tiles, one channel a block
+    (673, 1233, 1, 132, 1),   # one channel: nothing to split
+    (673, 1233, 5, 132, 3),   # five channels over three blocks: 2, 2, 1
+    (329, 609, 3, 132, 3),
+    (2000, 4000, 3, 132, 1),  # 63 x 32 = 2016 tiles fill the card
+    (673, 1233, 3, 16, 1),    # a small card: the tiles fill it
+])
+def test_corr_split_plan(h_out, w_out, c, sms, splits):
+    """How many blocks share a tile's channels (csrc/match_template.cu):
+    one while the tiles give every SM four blocks, else up to one channel
+    a block, with no split left empty."""
+    from vacv_tpu_torch.ops.cuda import match_template as mt
+
+    got = mt.split_plan(h_out, w_out, c, sms)
+    assert got == splits
+    per = -(-c // got)
+    assert (got - 1) * per < c

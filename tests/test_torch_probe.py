@@ -147,3 +147,25 @@ def test_step_slides_a_one_row_window():
     b = torch.from_numpy(bn).to(torch.int8)
     assert torch.equal(probe_i8.step(0, a2, b, 5), probe_dot_torch(a2[:-1], b, 5))
     assert torch.equal(probe_i8.step(1, a2, b, 5), probe_dot_torch(a2[1:], b, 5))
+
+
+@pytest.mark.parametrize("m,n,reps,sms,splits", [
+    (1024, 1024, 32, 132, 1),   # 16 x 8 = 128 tiles already fill the card
+    (96, 2048, 64, 132, 4),     # 2 x 16 = 32 tiles: four blocks a tile
+    (96, 1024, 64, 132, 8),     # 16 tiles: eight blocks a tile
+    (96, 1024, 67, 132, 8),     # reps not a multiple of the split: 9, 9, ..., 4
+    (96, 2048, 1, 132, 1),      # one rep: nothing to split
+    (96, 2048, 5, 132, 1),      # under one rep for each warpgroup of a second block
+    (17, 9, 24, 132, 8),        # one tile: three reps a block, one for each warpgroup
+    (70, 130, 70, 132, 18),     # 4 tiles, 23 splits at most: 4 reps a split, the last 2
+    (130, 200, 7, 132, 2),      # 6 tiles; 7 reps fill two blocks of three warpgroups
+    (96, 2048, 64, 16, 1),      # a small card: the tiles fill it
+])
+def test_split_plan_fills_the_card(m, n, reps, sms, splits):
+    """How many blocks share a tile's reps (csrc/probe_mma.cu): enough for a
+    block on every SM, at least one rep for each of a block's three
+    warpgroups, and no split left empty."""
+    got = probe.split_plan(m, n, reps, sms)
+    assert got == splits
+    per = -(-reps // got)
+    assert (got - 1) * per < reps  # the last split has reps

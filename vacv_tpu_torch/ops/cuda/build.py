@@ -97,6 +97,14 @@ def library() -> Build:
     return Build(out, log, seconds, ctypes.CDLL(str(out)))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's SM count, which the wrappers' split plans fill."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if rc != 0:

@@ -11,6 +11,10 @@ On a CUDA tensor it launches the hand-written kernel
 (``vacv_tpu_torch/csrc/match_template.cu``), counted as ``"match_corr"``,
 or raises; on a CPU tensor it runs the plain version ``corr_planes_torch``
 (``torch.nn.functional.conv2d`` in f32), counted as ``"match_corr_torch"``.
+
+The kernel gives each 32 × 128 output tile one block; where the tiles are
+too few to keep every SM busy it splits the channels over several blocks
+of a tile and sums their partials in a second launch (``split_plan``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ import torch
 from ... import config
 from . import build
 
+TILE_H, TILE_W = 32, 128  # the kernel's output tile (csrc/match_template.cu)
+BLOCKS_PER_SM = 4         # blocks an SM should see before channels are split
+
 
 @functools.lru_cache(maxsize=1)
 def _entry_points():
@@ -29,8 +36,8 @@ def _entry_points():
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     fn = lib.vacv_match_corr
     fn.restype = i
-    # device, stream, img, c, h, w, strides c/y/x, template, th, tw, out
-    fn.argtypes = [i, p, p, i, i, i, ll, ll, ll, p, i, i, p]
+    # device, stream, img, c, h, w, strides c/y/x, template, th, tw, out, splits
+    fn.argtypes = [i, p, p, i, i, i, ll, ll, ll, p, i, i, p, i]
     return lib, fn
 
 
@@ -56,18 +63,32 @@ def corr_planes_torch(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.conv2d(img[None], k[None])[0, 0]
 
 
+def split_plan(h_out: int, w_out: int, c: int, sms: int) -> int:
+    """How many blocks share the channels of one output tile: one where
+    the tiles give every SM ``BLOCKS_PER_SM`` blocks, else enough (up to
+    one channel a block) to come close."""
+    tiles = -(-h_out // TILE_H) * -(-w_out // TILE_W)
+    splits = max(1, min(c, -(-BLOCKS_PER_SM * sms // tiles)))
+    per = -(-c // splits)
+    return -(-c // per)  # no split left empty
+
+
 def _launch(img, k):
     c, h, w = img.shape
     _, th, tw = k.shape
     dev = img.device
-    out = torch.empty((h - th + 1, w - tw + 1), dtype=torch.float32, device=dev)
+    h_out, w_out = h - th + 1, w - tw + 1
     k = k.contiguous()
+    splits = split_plan(h_out, w_out, c, build.sm_count(dev.index))
+    # One buffer for the splits' partials; the kernel sums them into the
+    # first slice, which is the response.
+    out = torch.empty((splits, h_out, w_out), dtype=torch.float32, device=dev)
     lib, fn = _entry_points()
     rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
-            img.data_ptr(), c, h, w, *img.stride(), k.data_ptr(), th, tw, out.data_ptr())
+            img.data_ptr(), c, h, w, *img.stride(), k.data_ptr(), th, tw, out.data_ptr(), splits)
     build.check(lib, rc, "correlation kernel")
     config.record_kernel("match_corr")
-    return out
+    return out[0]
 
 
 def corr_planes(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,10 @@ one.  On a CUDA tensor it launches the hand-written tensor-core kernel
 (``vacv_tpu_torch/csrc/probe_mma.cu``), counted as ``"probe_dot"``, or
 raises; on a CPU tensor it runs the plain version ``probe_dot_torch``,
 counted as ``"probe_dot_torch"``.
+
+The kernel gives each 64 × 128 output tile one block; where the tiles are
+fewer than the card's SMs it splits the reps of a tile over several blocks
+and adds their partials in a second launch (``split_plan``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from . import build
 
 # operand type → (result type, K granule of one mma step)
 _TYPES = {torch.bfloat16: (torch.float32, 16), torch.int8: (torch.int32, 32)}
+TILE_M, TILE_N = 64, 128  # the kernel's output tile (csrc/probe_mma.cu)
+CONSUMERS = 3             # its warpgroups, which share a block's reps
 
 
 @functools.lru_cache(maxsize=1)
@@ -33,8 +39,8 @@ def _entry_points():
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     fn = lib.vacv_probe_mma
     fn.restype = i
-    # device, stream, a, lda, b, ldb, out, m, k, n, reps, is_i8
-    fn.argtypes = [i, p, p, ll, p, ll, p, i, i, i, i, i]
+    # device, stream, a, lda, b, ldb, out, m, k, n, reps, splits, is_i8
+    fn.argtypes = [i, p, p, ll, p, ll, p, i, i, i, i, i, i]
     return lib, fn
 
 
@@ -67,6 +73,16 @@ def probe_dot_torch(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor
     return acc.to(torch.float32)
 
 
+def split_plan(m: int, n: int, reps: int, sms: int) -> int:
+    """How many blocks share the reps of one output tile: enough to give
+    each of the card's ``sms`` SMs a block where the tiles alone are fewer,
+    but at least one rep for each warpgroup of a block."""
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    splits = max(1, min(sms // tiles, reps // CONSUMERS))
+    per = -(-reps // splits)
+    return -(-reps // per)  # no split left empty
+
+
 def _launch(a, b, reps, m):
     out_dtype, granule = _TYPES[a.dtype]
     k, n = b.shape
@@ -77,14 +93,19 @@ def _launch(a, b, reps, m):
     if (a.stride(0) * a.element_size()) % 16 or a.data_ptr() % 16:
         raise ValueError("the probe kernel needs 16-byte aligned rows of a")
     dev = a.device
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    splits = split_plan(m, n, int(reps), build.sm_count(dev.index))
+    # One buffer for the splits' partials; the kernel sums them into the
+    # first slice, which is the result.
+    out = torch.empty((splits, m, n), dtype=out_dtype, device=dev)
     lib, fn = _entry_points()
-    rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream, a.data_ptr(), a.stride(0),
-            b.data_ptr(), b.stride(0), out.data_ptr(), m, k, n, int(reps),
+    # The raw handle of the current stream: a probe call is microseconds of
+    # work, and torch.cuda.current_stream() builds a Stream object per call.
+    rc = fn(dev.index, torch._C._cuda_getCurrentRawStream(dev.index), a.data_ptr(), a.stride(0),
+            b.data_ptr(), b.stride(0), out.data_ptr(), m, k, n, int(reps), splits,
             int(a.dtype == torch.int8))
     build.check(lib, rc, "probe kernel")
     config.record_kernel("probe_dot")
-    return out
+    return out[0]
 
 
 def probe_dot(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
