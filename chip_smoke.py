@@ -17,12 +17,19 @@ Phases, each printed as it runs:
    BASELINE config-4 crop, 224x224 out) and odd frames; the NV fused
    kernel (32 stacked NV buffers of 1620x1920, the same crop; NV21, NV12,
    RGB, every stats mode, int and device tops) and odd frames; yuv2bgr
-   (bit-exact, 1080p and odd heights); normalize ((3, 1080, 1920) f32 and
-   u8, (3, 224, 224)); the warp kernel at BASELINE config 5's geometry
-   (two 2560x1440 frames, the config-5 crop, its rotated matrix to
-   1216x684; u8 bit-exact, f32 within 5e-3) and at 360x640 and 215x283
-   over every interpolation, border, border value and type, four
-   matrices, and the flags through ``warp_affine``; the correlation kernel
+   (bit-exact, 1080p and odd heights); normalize ((3, 1080, 1920) and
+   (3, 224, 224), then odd sizes: one element, h*w no multiple of 4, a
+   prime, 64 planes, more planes than resident blocks, slices larger than
+   shared memory; f32 and u8, from bases 0, 1 and 3 elements above a
+   16-byte boundary, in both launch forms, the same bits on a second
+   call); the warp kernel at BASELINE config 5's geometry (two 2560x1440
+   frames, the config-5 crop as an HWC view, as planes and at an odd left,
+   its rotated matrix to 1216x684), at 360x640 and 215x283 over every
+   interpolation, border, border value and type and four matrices, over
+   seeded fuzz matrices (rotate, scale, flip, overshoot past both edges)
+   at sizes 1x1 to 360x640, every case through the kernel's three paths
+   (staged, direct, edge) and bit-exact for u8 and f32, and the flags
+   through ``warp_affine``; the correlation kernel
    against ``conv2d`` (TF32 off), within 1e-5 of the largest response, at
    seven shapes (the channel split, an HWC-strided image, outputs that are
    no multiple of the tile, 1x1 to 65x65 templates); the tensor-core probe
@@ -58,7 +65,16 @@ Phases, each printed as it runs:
    TB/s or operations at the peak of their type) and one library call for
    the same function where PyTorch has one, and the main paths; the
    profiler's device time per call of the correlation, ``conv2d`` and
-   ``grid_sample``, and of one tracking frame by kernel.
+   ``grid_sample``, and of one tracking frame by kernel; the normalize
+   kernel at (3, 1080, 1920) and (3, 224, 224), f32 and u8, and the warp
+   kernel at config 5 (linear, cubic, nearest, planar, f32) with the
+   kernels launched per call (one each, asserted), config 5's batch by
+   kernel, the normalize kernel's two launch forms and the warp kernel's
+   three paths side by side, and the path every timed warp case took.
+
+``python3 chip_smoke.py --kernel-times`` runs the device and build phases
+and the normalize, warp and config-5 profiler timings alone; a copy of this
+script in an earlier checkout times that tree's kernels with the same code.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -88,7 +104,7 @@ KERNELS = {
     "yuv2bgr": ("vacv_tpu_torch/csrc/yuv2bgr.cu", "vacv_tpu/ops/pallas/yuv2bgr.py:37"),
     "normalize_fused": ("vacv_tpu_torch/csrc/normalize.cu",
                         "vacv_tpu/ops/pallas/normalize.py:71"),
-    "warp_affine": ("vacv_tpu_torch/csrc/warp_affine.cu",
+    "warp_affine": ("vacv_tpu_torch/csrc/warp_affine.cuh",
                     "vacv_tpu/ops/pallas/warp_affine.py:365"),
     "match_corr": ("vacv_tpu_torch/csrc/match_template.cu",
                    "vacv_tpu/ops/pallas/match_template.py:71"),
@@ -158,7 +174,7 @@ def phase_build() -> None:
     how = f"built in {b.seconds:.1f} s" if b.log else "reused an earlier build"
     log(f"[build] {b.path.relative_to(build.BUILD_DIR.parent.parent)}: {how}")
     for line in b.log.splitlines():
-        if "ptxas info" in line:
+        if "ptxas info" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
 
 
@@ -320,62 +336,120 @@ def phase_compare_yuv2bgr() -> float:
 
 
 def phase_compare_normalize() -> float:
-    """The standalone normalize kernel against normalize_torch."""
+    """The standalone normalize kernel against normalize_torch: the main
+    paths' shapes, then odd sizes (h*w no multiple of 4, one element, a
+    prime, 64 planes, a plane just too large for a cluster, more planes
+    than resident blocks, slices larger than shared memory), each from a
+    16-byte-aligned base and from bases 1 and 3 elements above one (a
+    contiguous slice at an odd offset), in both launch forms where the
+    plane fits a cluster; the same bits on a second call."""
     from vacv_tpu_torch.core.image import Image
     from vacv_tpu_torch.core.types import Layout
-    from vacv_tpu_torch.ops.cuda.normalize import normalize_fused
+    from vacv_tpu_torch.ops.cuda import normalize as nm
     from vacv_tpu_torch.ops.normalize import normalize_torch
 
-    head = None
-    for shape, dtype in [((3, H, W), torch.float32), ((3, H, W), torch.uint8),
-                         ((3, OUT, OUT), torch.float32)]:
-        g = torch.Generator(device="cuda")
-        g.manual_seed(shape[1])
-        x = torch.randint(0, 256, shape, generator=g, device="cuda").to(dtype)
-        got = normalize_fused(x)
-        want = normalize_torch(Image(x, Layout.CHW)).data
-        err = check(f"normalize {dtype} {shape}", got, want, "norm")
-        head = err if head is None else head
+    lim = nm._limits(0)
+    log(f"[compare] normalize limits: {lim}")
+    head, worst, cases = None, 0.0, 0
+    shapes = [(3, H, W), (3, OUT, OUT), (1, 1, 1), (3, 37, 61), (2, 1, 65521), (64, 37, 64),
+              (5, 13, 17), (2, 255, 257), (1, 300, 300), (7, 301, 303), (150, 260, 260),
+              (2, 2160, 3840)]
+    for shape in shapes:
+        n = int(np.prod(shape))
+        for dtype in (torch.float32, torch.uint8):
+            plan = nm.launch_plan(shape[0], shape[1] * shape[2], 1 if dtype == torch.uint8 else 4, lim)
+            forms = ("cluster", "grid") if plan.form == "cluster" else ("grid",)
+            for offset in (0, 1, 3):
+                g = torch.Generator(device="cuda")
+                g.manual_seed(shape[1] + offset)
+                buf = torch.randint(0, 256, (n + offset,), generator=g, device="cuda").to(dtype)
+                x = buf[offset:].view(shape)   # contiguous, offset elements above the base
+                want = normalize_torch(Image(x, Layout.CHW)).data
+                for form in forms:
+                    got = nm.normalize_fused(x, form=form)
+                    torch.cuda.synchronize()
+                    require(got.shape == want.shape and got.dtype == torch.float32
+                            and bool(torch.isfinite(got).all()), f"normalize {shape} {dtype} {form}")
+                    err = (got - want).abs().max().item()
+                    cos = cosine(got, want) if n <= 3 * H * W else None
+                    require(err < 1e-4 and (cos is None or cos >= 1 - 1e-6 or n == shape[0]),
+                            f"normalize {shape} {dtype} {form} offset {offset}: max_abs {err} cos {cos}")
+                    require(torch.equal(nm.normalize_fused(x, form=form), got),
+                            f"normalize {shape} {dtype} {form}: differs between two calls")
+                    if shape == (3, H, W) and dtype == torch.float32 and offset == 0:
+                        head = err
+                    worst, cases = max(worst, err), cases + 1
+            log(f"[compare] normalize {str(dtype)[6:]} {shape}: plan {plan.form} "
+                f"(cluster {plan.cluster}, grid {plan.grid}, slices a plane {plan.per_plane}, "
+                f"held {plan.cap} of {plan.slice}, rounds {plan.rounds}); forms {forms} x offsets "
+                f"0, 1, 3 held to the plain version")
+    log(f"[compare] normalize: {cases} cases, worst max_abs={worst} (bar 1e-4, cosine >= 1-1e-6), "
+        f"every case the same bits on a second call; (3, {H}, {W}) f32 max_abs={head}")
     return head
 
 
 def warp_pair(planes, minv, h_out, w_out, **kw):
-    """(flips, max-abs) of the warp kernel against its plain version on
-    the same CUDA planes; u8 must be bit-exact, f32 within 5e-3."""
-    from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
+    """The warp kernel against its plain version on the same CUDA planes,
+    through each of the kernel's paths ("auto": every tile chooses;
+    "no_stage": no shared-memory copy of a tile's source box; "edge_only":
+    every tap under the border rule): u8 and f32 both bit-exact.  Returns
+    the number of comparisons made."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import PATHS, warp_planes_batch, warp_planes_batch_torch
 
-    got = warp_planes_batch(planes, minv, h_out, w_out, **kw)
     want = warp_planes_batch_torch(planes, minv, h_out, w_out, **kw)
-    torch.cuda.synchronize()
-    require(got.shape == want.shape and got.dtype == want.dtype, f"warp {kw}: shape or type")
-    d = (got.to(torch.float64) - want.to(torch.float64)).abs()
-    flips, max_abs = int((d > 0).sum().item()), d.max().item()
-    if got.dtype == torch.uint8:
-        require(flips == 0, f"warp {tuple(planes.shape)} {kw}: {flips} u8 values differ")
-    else:
-        require(bool(torch.isfinite(got).all()) and max_abs <= 5e-3,
-                f"warp {tuple(planes.shape)} {kw}: max_abs {max_abs}")
-    return flips, max_abs
+    for path in PATHS:
+        got = warp_planes_batch(planes, minv, h_out, w_out, path=path, **kw)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype, f"warp {kw}: shape or type")
+        if not torch.equal(got, want):
+            d = (got.to(torch.float64) - want.to(torch.float64)).abs()
+            raise SystemExit(f"FAILED: warp {tuple(planes.shape)} strides {planes.stride()} "
+                             f"{planes.dtype} {kw} path {path}: {int((d > 0).sum())} values differ, "
+                             f"max_abs {d.max().item()}, matrix {np.asarray(minv).tolist()}")
+    return len(PATHS)
 
 
 def phase_compare_warp() -> float:
-    """The warp kernel at config 5's geometry, then a sweep of every
-    interpolation, border, border value, type and four matrices at
-    360x640 and 215x283, then the flags through ``warp_affine``."""
+    """The warp kernel at config 5's geometry (every interpolation, two
+    borders, the HWC crop view and planar planes, u8 and f32, and the crop
+    at an odd left), then a sweep of every interpolation, border, border
+    value, type and four matrices at 360x640 and 215x283, then seeded fuzz
+    matrices (rotate, scale, flip, overshoot past both edges) on HWC views,
+    planar planes and a crop at an odd left at sizes 1x1 to 360x640, then
+    the flags through ``warp_affine``.  Every case runs through the
+    kernel's three paths and is bit-exact to the plain version."""
     import vacv_tpu_torch as vt
     from vacv_tpu_torch import config
+    from vacv_tpu_torch.ops.cuda.warp_affine import tile_paths
+    from vacv_tpu_torch.utils.fuzz import affine_matrices
 
+    borders = (vt.BORDER_CONSTANT, vt.BORDER_REPLICATE, vt.BORDER_REFLECT, vt.BORDER_WRAP,
+               vt.BORDER_REFLECT_101)
+    interps = (vt.INTER_LINEAR, vt.INTER_NEAREST, vt.INTER_CUBIC)
     left, top, right, bottom = RECT5
     batch = make_batch(BATCH5, H5, W5, seed=50)
     crop = batch[:, top:bottom, left:right].permute(0, 3, 1, 2)  # a strided view
+    odd = batch[:, top:bottom, left + 1:right].permute(0, 3, 1, 2)
     minv = vt.invert_affine(np.asarray(M5, np.float32))
-    worst = 0.0
-    for dtype in (torch.uint8, torch.float32):
-        flips, max_abs = warp_pair(crop.to(dtype), minv, WARP5[1], WARP5[0])
-        log(f"[compare] warp config 5 {dtype} {BATCH5}x3x{bottom - top}x{right - left} -> "
-            f"{WARP5[1]}x{WARP5[0]}: flipped values {flips}, max_abs={max_abs}")
-        worst = max(worst, max_abs)
-    del batch, crop
+    runs = 0
+    for name, src in (("HWC crop view u8", crop), ("planar u8", crop.contiguous()),
+                      ("HWC f32", crop.float()), ("planar f32", crop.float().contiguous()),
+                      ("HWC crop view u8, odd left", odd)):
+        for interp in interps:
+            for border in (vt.BORDER_CONSTANT, vt.BORDER_REFLECT_101):
+                runs += warp_pair(src, minv, WARP5[1], WARP5[0], interp=interp, border=border,
+                                  border_value=7.0)
+            log(f"[compare] warp config 5 {name} {interp.name}: bit-exact on every path; tiles "
+                f"{tile_paths(src, minv, WARP5[1], WARP5[0], interp)}")
+    # A fuzz matrix at config 5's full size: steep maps put tiles over the
+    # staging budget (the direct path) and on every edge.
+    for i, m in enumerate(affine_matrices(5, bottom - top, right - left, WARP5[1], WARP5[0], 3)):
+        for src in (crop, crop.float()):
+            runs += warp_pair(src, m, WARP5[1], WARP5[0], interp=vt.INTER_CUBIC,
+                              border=vt.BORDER_REFLECT)
+            log(f"[compare] warp config 5 size, fuzz matrix {i} {src.dtype} cubic: bit-exact; "
+                f"tiles {tile_paths(src, m, WARP5[1], WARP5[0], vt.INTER_CUBIC)}")
+    del batch, crop, odd
     for h, w in ((360, 640), (215, 283)):
         planes = make_batch(2, h, w, seed=h).permute(0, 3, 1, 2)
         h_out, w_out = h * 4 // 5, w * 4 // 5
@@ -387,18 +461,37 @@ def phase_compare_warp() -> float:
         }
         for name, m in matrices.items():
             inv = vt.invert_affine(np.asarray(m, np.float32))
-            runs, flips, max_abs = 0, 0, 0.0
+            before = runs
             for dtype in (torch.uint8, torch.float32):
                 src = planes.to(dtype)
-                for interp in (vt.INTER_LINEAR, vt.INTER_NEAREST, vt.INTER_CUBIC):
-                    for border in (vt.BORDER_CONSTANT, vt.BORDER_REPLICATE, vt.BORDER_REFLECT,
-                                   vt.BORDER_WRAP, vt.BORDER_REFLECT_101):
+                for interp in interps:
+                    for border in borders:
                         for bv in (0.0, 17.0):
-                            f, e = warp_pair(src, inv, h_out, w_out, interp=interp,
-                                             border=border, border_value=bv)
-                            runs, flips, max_abs = runs + 1, flips + f, max(max_abs, e)
-            log(f"[compare] warp {h}x{w} {name}: {runs} interp x border x value x type "
-                f"cases, u8 bit-exact, f32 max_abs={max_abs}")
+                            runs += warp_pair(src, inv, h_out, w_out, interp=interp,
+                                              border=border, border_value=bv)
+            log(f"[compare] warp {h}x{w} {name}: {runs - before} interp x border x value x type "
+                f"x path cases, u8 and f32 bit-exact")
+    paths = {"staged": 0, "direct": 0, "edge": 0}
+    before = runs
+    for h, w in ((1, 1), (2, 3), (5, 7), (37, 53), (215, 283), (360, 640)):
+        img = make_batch(2, h, w + 1, seed=h + 7)
+        img5 = torch.cat([img, img[..., :2]], dim=-1)  # five channels: two channel groups
+        h_out, w_out = max(1, h * 4 // 5), max(1, w * 5 // 4)
+        for m in affine_matrices(h * 1000 + w, h, w, h_out, w_out, 5):
+            for src in (img[:, :, 1:].permute(0, 3, 1, 2),               # HWC, odd left
+                        img5[:, :, :w].permute(0, 3, 1, 2).contiguous(),  # planar, 5 channels
+                        img[:, :, :w].permute(0, 3, 1, 2).float()):       # HWC f32
+                for interp in interps:
+                    for border in borders:
+                        runs += warp_pair(src, m, h_out, w_out, interp=interp, border=border,
+                                          border_value=9.0)
+                    for k, v in tile_paths(src, m, h_out, w_out, interp).items():
+                        paths[k] += v
+            runs += warp_pair(img[:, :, 1:].permute(0, 3, 1, 2), m, h_out, w_out,
+                              edge_mode="vacv", border_value=3.0)
+    log(f"[compare] warp fuzz (1x1 to 360x640, HWC at an odd left, planar x 5 channels, HWC f32; "
+        f"every interpolation and border): {runs - before} cases bit-exact; tiles by path {paths}")
+    require(all(paths.values()), f"the fuzz did not reach every path: {paths}")
     img = make_batch(1, 360, 640, seed=51)[0]
     m = np.asarray(matrices["rot30"], np.float32)
     flags = [
@@ -414,12 +507,13 @@ def phase_compare_warp() -> float:
             with config.backend("torch"):
                 want = vt.warp_affine(img.to(dtype), *args, **kw).data
             torch.cuda.synchronize()
-            require(torch.equal(got, want) if dtype == torch.uint8 else
+            require(torch.equal(got, want) if dtype != torch.float16 else
                     (got.float() - want.float()).abs().max().item() <= 5e-3,
                     f"warp_affine flags {dtype} {args[2:]} {kw}")
     log("[compare] warp_affine flags (TRANSPARENT, vacv edge, WARP_INVERSE_MAP, ISOLATED, "
         "VScalar) on an HWC image, u8/f32/f16: held to the plain gather")
-    return worst
+    log(f"[compare] warp: {runs} kernel-against-plain comparisons, all bit-exact")
+    return 0.0
 
 
 def phase_compare_corr() -> float:
@@ -717,6 +811,146 @@ def device_us(fn, key=None, n=20):
                if e.device_type == torch.autograd.DeviceType.CUDA and (key is None or key in e.key)]
     total = sum(getattr(e, "device_time_total", 0) or 0 for e in kernels)
     return total / n if total else None
+
+
+def device_profile(fn, n=20):
+    """The profiler's view of ``fn()``: (device µs per call over every
+    kernel, {kernel name: (device µs per call, launches per call)}) over
+    ``n`` calls after one warm-up call.  The profiler now and then drops a
+    launch's record (49 of 50), so a kernel's launches per call are its
+    records over ``n`` rounded, and its time per call their mean time
+    times that."""
+    from vacv_tpu_torch.utils.perf import profiler_trace
+
+    fn()
+    torch.cuda.synchronize()
+    with profiler_trace("build/device_us") as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            per_call = max(1, round(e.count / n))
+            kernels[e.key] = ((getattr(e, "device_time_total", 0) or 0) / e.count * per_call,
+                              per_call)
+    return sum(t for t, _ in kernels.values()), kernels
+
+
+NORMALIZE_KERNELS = ("normalize_", "partials_kernel", "merge_kernel", "scale_kernel")
+
+
+def kernel_times(card: str) -> dict:
+    """The profiler's device time per call of the normalize kernel at the
+    shapes the main paths and the table use, of the warp kernel at BASELINE
+    config 5's geometry, and of one config-5 batch by kernel.
+
+    ``python3 chip_smoke.py --kernel-times`` runs the device and build
+    phases and this alone.  It calls only ``normalize_fused(x)``,
+    ``warp_planes_batch(...)`` and ``Preprocessor.batch``, so a copy of this
+    script in an earlier checkout of the repo times that tree's kernels with
+    the same code, in the same call on the same card.  Returns {label:
+    (device µs per call, kernel launches per call)}."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch.core.types import VRect
+    from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+    from vacv_tpu_torch.ops.cuda.normalize import normalize_fused
+    from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch
+
+    out = {}
+
+    def measure(label, fn, n=50):
+        total, kernels = device_profile(fn, n)
+        launches = sum(c for _, c in kernels.values())
+        names = ", ".join(f"{k[:60]} {t:.2f} us x{c:g}" for k, (t, c) in sorted(kernels.items()))
+        log(f"[time] {label}: {total:.2f} us device per call in {launches:g} launches "
+            f"({names}) [{card}]")
+        out[label] = (total, launches)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    for shape in ((3, H, W), (3, OUT, OUT)):
+        for dtype in (torch.float32, torch.uint8):
+            x = torch.randint(0, 256, shape, generator=g, device="cuda").to(dtype)
+            measure(f"normalize {str(dtype)[6:]} {shape}", lambda: normalize_fused(x))
+    left, top, right, bottom = RECT5
+    batch = make_batch(BATCH5, H5, W5, seed=70)
+    crop = batch[:, top:bottom, left:right].permute(0, 3, 1, 2)
+    minv = vt.invert_affine(np.asarray(M5, np.float32))
+    (w_out, h_out) = WARP5
+    measure("warp config 5 u8 linear CONSTANT", lambda: warp_planes_batch(crop, minv, h_out, w_out))
+    measure("warp config 5 u8 cubic REFLECT_101", lambda: warp_planes_batch(
+        crop, minv, h_out, w_out, interp=vt.INTER_CUBIC, border=vt.BORDER_REFLECT_101))
+    measure("warp config 5 u8 nearest REPLICATE", lambda: warp_planes_batch(
+        crop, minv, h_out, w_out, interp=vt.INTER_NEAREST, border=vt.BORDER_REPLICATE))
+    planar = crop.contiguous()
+    measure("warp config 5 u8 linear CONSTANT, planar source",
+            lambda: warp_planes_batch(planar, minv, h_out, w_out))
+    crop_f = crop.float()  # the view's strides are kept: HWC f32
+    measure("warp config 5 f32 linear CONSTANT", lambda: warp_planes_batch(crop_f, minv, h_out, w_out))
+    del planar, crop_f
+
+    pre = Preprocessor(PreprocessConfig(crop_rect=VRect(*RECT5), warp=(M5, WARP5),
+                                        out_size=(OUT, OUT)))
+    dev_top = torch.tensor(top, dtype=torch.int32, device="cuda")
+    total, kernels = device_profile(lambda: pre.batch(batch, top=dev_top), 10)
+    log(f"[time] config 5 main path: {total:.2f} us device per batch of {BATCH5} [{card}]")
+    norm = sum(t for k, (t, _) in kernels.items() if any(s in k for s in NORMALIZE_KERNELS))
+    warp = sum(t for k, (t, _) in kernels.items() if "warp_kernel" in k)
+    log(f"[time]   of which normalize {norm:.2f} us, warp {warp:.2f} us")
+    for k, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[time]   {t:9.2f} us/batch {100 * t / total:5.1f}%  {c:g} launches/batch  {k[:90]}")
+    out["config 5 main path"] = (total, sum(c for _, c in kernels.values()))
+    out["config 5 normalize share"] = (norm, 0)
+    out["config 5 warp share"] = (warp, 0)
+    return out
+
+
+def time_forms_and_paths(card: str) -> None:
+    """What each design choice of the two redesigned kernels is worth, by
+    the profiler's device time: the normalize kernel's two launch forms at
+    (3, 224, 224), and the warp kernel at config 5 with every tile choosing
+    its path, without the shared-memory copy, and with every tap under the
+    border rule; and which path each timed warp case's tiles take."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch.ops.cuda.normalize import normalize_fused
+    from vacv_tpu_torch.ops.cuda.warp_affine import PATHS, tile_paths, warp_planes_batch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    for dtype in (torch.float32, torch.uint8):
+        x = torch.randint(0, 256, (3, OUT, OUT), generator=g, device="cuda").to(dtype)
+        times = {form: device_profile(lambda: normalize_fused(x, form=form), 50)[0]
+                 for form in ("cluster", "grid")}
+        log(f"[time] normalize {str(dtype)[6:]} (3, {OUT}, {OUT}) by launch form: "
+            + ", ".join(f"{k} {v:.2f} us" for k, v in times.items()) + f" [{card}]")
+    left, top, right, bottom = RECT5
+    batch = make_batch(BATCH5, H5, W5, seed=70)
+    crop = batch[:, top:bottom, left:right].permute(0, 3, 1, 2)
+    minv = vt.invert_affine(np.asarray(M5, np.float32))
+    (w_out, h_out) = WARP5
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    for name, src, kw in (
+            ("u8 linear CONSTANT", crop, {}),
+            ("u8 cubic REFLECT_101", crop, dict(interp=vt.INTER_CUBIC, border=vt.BORDER_REFLECT_101)),
+            ("u8 linear CONSTANT, planar source", crop.contiguous(), {}),
+            ("f32 linear CONSTANT", crop.float(), {})):
+        times, cold = {}, {}
+        for path in PATHS:
+            def run():
+                return warp_planes_batch(src, minv, h_out, w_out, path=path, **kw)
+
+            def run_cold():  # 96 MB written first: the source is no longer in the 50 MB L2
+                flush.zero_()
+                return run()
+
+            times[path] = device_profile(run, 30)[0]
+            cold[path] = sum(t for k, (t, _) in device_profile(run_cold, 10)[1].items()
+                             if "warp_kernel" in k)
+        tiles = tile_paths(src, minv, h_out, w_out, kw.get("interp", vt.INTER_LINEAR))
+        log(f"[time] warp config 5 {name}: tiles by path {tiles}; device time by path switch: "
+            + ", ".join(f"{k} {v:.2f} us" for k, v in times.items()) + "; with the source out of "
+            "L2: " + ", ".join(f"{k} {fmt_us(v or None)}" for k, v in cold.items()) + f" [{card}]")
 
 
 def fmt_us(us) -> str:
@@ -1229,6 +1463,9 @@ def main() -> int:
     import vacv_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     phase_build()
+    if sys.argv[1:] == ["--kernel-times"]:
+        kernel_times(card)
+        return 0
     errs = {
         "preprocess_fused": phase_compare(),
         "preprocess_fused_nv": phase_compare_nv(),
@@ -1260,6 +1497,12 @@ def main() -> int:
     launches["preprocess_fused_nv"] += frontend["preprocess_fused_nv"]
     times = {"preprocess_fused": phase_time(card), **phase_time_nv(card),
              **phase_time_warp_corr(card), "probe_dot": probe_times}
+    per_call = kernel_times(card)
+    for label, (_, n_launches) in per_call.items():
+        if label.startswith("normalize") or label.startswith("warp"):
+            require(n_launches == 1, f"{label}: {n_launches} kernel launches per call, expected 1")
+    log("[time] normalize and warp: one kernel launch per call at every timed shape")
+    time_forms_and_paths(card)
     record = {"kernels": [{
         "name": name,
         "route": "cuda",

@@ -5,8 +5,11 @@ CUDA device, so on a CPU-only host the whole file skips.  Each kernel is
 held to its plain PyTorch version on the same CUDA tensors: the fused
 preprocess kernels to cosine >= 1-1e-6 and max-abs < 0.05 normalized,
 and at most 1 LSB on under 1e-3 of the values with ``normalize=False``;
-yuv2bgr bit-exact; normalize to cosine >= 1-1e-6 and max-abs < 1e-4; the
-warp kernel bit-exact on u8 and within 5e-3 on f32; the correlation kernel
+yuv2bgr bit-exact; normalize to cosine >= 1-1e-6 and max-abs < 1e-4, in
+both launch forms, from aligned and misaligned bases, one kernel launch a
+call and the same bits on a second call; the warp kernel bit-exact on u8
+and f32 through each of its three paths (within 5e-3 on f32 in the older
+sweep); the correlation kernel
 within 1e-5 of the largest response magnitude; the tensor-core probe
 bit-exact with the probe's integer operands and, on random bf16 operands,
 within 1e-5 of the largest sum of product magnitudes.
@@ -209,6 +212,72 @@ def test_normalize_kernel_matches_plain_version(cuda, shape, dtype):
     assert cosine(got, want) >= 1 - 1e-6 and (got - want).abs().max().item() < 1e-4
 
 
+NORM_ODD_SHAPES = [(1, 1, 1), (3, 37, 61), (2, 1, 65521), (64, 37, 64), (5, 13, 17),
+                   (2, 255, 257), (1, 300, 300), (150, 260, 260), (3, 224, 224)]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8], ids=["f32", "u8"])
+@pytest.mark.parametrize("shape", NORM_ODD_SHAPES)
+def test_normalize_kernel_odd_sizes_forms_and_bases(cuda, shape, dtype, offset):
+    """One element, h*w no multiple of 4, a prime, 64 planes, a plane just
+    too large for a cluster, more planes than resident blocks: from a base
+    ``offset`` elements above a 16-byte boundary (a contiguous slice), in
+    every launch form the plane allows; the same bits on a second call."""
+    from vacv_tpu_torch.ops.cuda import normalize as nm
+
+    n = int(np.prod(shape))
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n + offset)
+    buf = torch.randint(0, 256, (n + offset,), generator=g, device=cuda).to(dtype)
+    x = buf[offset:].view(shape)
+    want = normalize_torch(vt.Image(x, vt.CHW)).data
+    plan = nm.launch_plan(shape[0], shape[1] * shape[2], x.element_size(), nm._limits(0))
+    for form in (("cluster", "grid") if plan.form == "cluster" else ("grid",)):
+        got = normalize_fused(x, form=form)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == shape
+        assert bool(torch.isfinite(got).all()) and (got - want).abs().max().item() < 1e-4
+        if shape[1] * shape[2] > 1:
+            assert cosine(got, want) >= 1 - 1e-6
+        assert torch.equal(normalize_fused(x, form=form), got)
+    if plan.form == "grid":
+        with pytest.raises(ValueError, match="does not fit"):
+            normalize_fused(x, form="cluster")
+
+
+def test_normalize_slices_larger_than_shared_memory(cuda):
+    """A 99.5 MB input: each block keeps what fits of its slice on the SM
+    and reads the rest again."""
+    from vacv_tpu_torch.ops.cuda import normalize as nm
+
+    x = torch.rand((3, 2160, 3840), device=cuda) * 255
+    plan = nm.launch_plan(3, 2160 * 3840, 4, nm._limits(0))
+    assert plan.form == "grid" and plan.cap < plan.slice
+    got = normalize_fused(x)
+    want = normalize_torch(vt.Image(x, vt.CHW)).data
+    assert (got - want).abs().max().item() < 1e-4
+    assert torch.equal(normalize_fused(x), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8], ids=["f32", "u8"])
+@pytest.mark.parametrize("shape", [(3, 224, 224), (3, 1080, 1920)])
+def test_normalize_is_one_kernel_launch_a_call(cuda, shape, dtype):
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randint(0, 256, shape, device=cuda).to(dtype)
+    normalize_fused(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            normalize_fused(x)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(kernels.values()) == 5 and len(kernels) == 1, kernels
+    assert "normalize_" in next(iter(kernels))
+
+
 def test_new_launch_counters_rise_once_per_call(cuda):
     nv = nv_on(cuda, seed=5)
     names = ("preprocess_fused_nv", "yuv2bgr", "normalize_fused",
@@ -319,6 +388,80 @@ def test_warp_kernel_matches_plain_version(cuda, matrix, interp, border, dtype):
     got = warp_planes_batch(planes, minv, 215, 283, **kw)
     torch.cuda.synchronize()
     assert_warp_close(got, warp_planes_batch_torch(planes, minv, 215, 283, **kw))
+
+
+def assert_warp_paths_exact(planes, minv, h_out, w_out, **kw):
+    """Bit-exact to the plain version through each of the kernel's paths."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import PATHS
+
+    want = warp_planes_batch_torch(planes, minv, h_out, w_out, **kw)
+    for path in PATHS:
+        got = warp_planes_batch(planes, minv, h_out, w_out, path=path, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), (path, kw, np.asarray(minv))
+
+
+@pytest.mark.parametrize("layout", ["hwc_odd_left", "planar_5ch", "hwc_f32", "planes_x_stride_2"])
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 3), (5, 7), (37, 53), (215, 283), (360, 640)])
+def test_warp_kernel_paths_on_fuzz_matrices(cuda, h, w, layout):
+    """Seeded maps (rotate, scale, flip, overshoot past both edges), every
+    interpolation and border, sizes from one pixel up, sources the kernel
+    stages (an HWC view from an odd left, planes), stages rarely (f32) and
+    never stages (strided planes): u8 and f32 bit-exact on every path."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import tile_paths
+    from vacv_tpu_torch.utils.fuzz import affine_matrices
+
+    img = batch_on(cuda, n=2, h=h, w=2 * w + 1, seed=h + w)
+    src = {
+        "hwc_odd_left": img[:, :, 1:w + 1].permute(0, 3, 1, 2),
+        "planar_5ch": torch.cat([img, img[..., :2]], -1)[:, :, :w].permute(0, 3, 1, 2).contiguous(),
+        "hwc_f32": img[:, :, :w].permute(0, 3, 1, 2).float(),
+        "planes_x_stride_2": img.permute(0, 3, 1, 2).contiguous()[..., 0:2 * w:2],
+    }[layout]
+    assert src.shape[2:] == (h, w)
+    h_out, w_out = max(1, h * 4 // 5), max(1, w * 5 // 4)
+    reached = {"staged": 0, "direct": 0, "edge": 0}
+    for m in affine_matrices(h * 1000 + w, h, w, h_out, w_out, 4):
+        for interp in (vt.INTER_LINEAR, vt.INTER_NEAREST, vt.INTER_CUBIC):
+            for border in BORDERS:
+                assert_warp_paths_exact(src, m, h_out, w_out, interp=interp, border=border,
+                                        border_value=9.0)
+            for k, v in tile_paths(src, m, h_out, w_out, interp).items():
+                reached[k] += v
+        assert_warp_paths_exact(src, m, h_out, w_out, edge_mode="vacv", border_value=3.0)
+    assert reached["edge"] > 0
+    if layout == "planes_x_stride_2":
+        assert reached["staged"] == 0
+    elif (h, w) == (360, 640):
+        assert reached["staged"] > 0 and reached["direct"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32], ids=["u8", "f32"])
+@pytest.mark.parametrize("interp", [vt.INTER_LINEAR, vt.INTER_NEAREST, vt.INTER_CUBIC],
+                         ids=lambda m: m.name)
+def test_warp_kernel_paths_at_config_5(cuda, interp, dtype):
+    """BASELINE config 5's geometry (two 2560x1440 frames, the crop as an
+    HWC view, the rotated map to 1216x684): nearly every tile interior,
+    staged by the cubic kernel and read directly by the others."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import tile_paths
+
+    batch = batch_on(cuda, n=2, h=1440, w=2560, seed=15)
+    crop = batch[:, 36:1404, 64:2496].permute(0, 3, 1, 2).to(dtype)
+    minv = vt.invert_affine(M_ROT)
+    tiles = tile_paths(crop, minv, 684, 1216, interp)
+    taken, other = ("staged", "direct") if interp == vt.INTER_CUBIC else ("direct", "staged")
+    assert tiles[taken] > 0.9 * sum(tiles.values()) and tiles[other] == 0
+    for border in (vt.BORDER_CONSTANT, vt.BORDER_REFLECT_101):
+        assert_warp_paths_exact(crop, minv, 684, 1216, interp=interp, border=border)
+    planar = crop.contiguous()
+    assert tile_paths(planar, minv, 684, 1216, interp) == tiles
+    assert_warp_paths_exact(planar, minv, 684, 1216, interp=interp)
+
+
+def test_warp_rejects_an_unknown_path(cuda):
+    planes = batch_on(cuda, n=2, seed=16).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="path"):
+        warp_planes_batch(planes, WARP_MATRICES["rotation"], 64, 64, path="fastest")
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.float16],

@@ -18,6 +18,8 @@ import vacv_tpu as vc
 import vacv_tpu_torch as vt
 from vacv_tpu import config as jconfig
 from vacv_tpu_torch import config
+from vacv_tpu_torch.ops.cuda import warp_affine as wk
+from vacv_tpu_torch.utils.fuzz import affine_matrices
 from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
 
 
@@ -209,3 +211,127 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         warp_planes_batch(planes, minv, 4, 4, interp=vt.INTER_AREA)
     with pytest.raises(ValueError, match="out must be"):
         warp_planes_batch(planes, minv, 4, 4, out=torch.empty((1, 3, 4, 5), dtype=torch.uint8))
+
+
+# ---- the kernel's tile decision on the host (the CUDA launch cannot run here) ----
+
+def test_wrapper_constants_are_the_kernels():
+    import re
+
+    src = (wk.build.SRC_DIR / "warp_affine.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kTileX"]), int(consts["kTileY"]), int(consts["kGroup"])) == (
+        wk.TILE_X, wk.TILE_Y, wk.GROUP)
+    assert int(consts["kStageBytes"]) == wk.STAGE_BYTES
+    assert int(consts["kFastLimit"]) == wk.FAST_LIMIT
+    assert re.search(r"enum \{ kAuto = 0, kNoStage = 1, kEdgeOnly = 2 \}", src)
+    assert wk.PATHS == ("auto", "no_stage", "edge_only")
+
+
+def tap_indices(minv, interp, h_out, w_out):
+    """The tap index ranges ``warp_planes_torch`` reads for every output
+    pixel, before any border rule, from its own coordinate grid: (x_min,
+    x_max, y_min, y_max), each (h_out, w_out)."""
+    from vacv_tpu_torch.ops.warp_affine import _grid, _to_index
+
+    fx, fy = _grid(minv, h_out, w_out, "cpu")
+    if interp == vt.INTER_NEAREST:
+        tx, ty = _to_index(torch.floor(fx + 0.5)), _to_index(torch.floor(fy + 0.5))
+        lo, hi = 0, 0
+    else:
+        tx, ty = _to_index(torch.floor(fx)), _to_index(torch.floor(fy))
+        lo, hi = (-1, 2) if interp == vt.INTER_CUBIC else (0, 1)
+    return (tx + lo).numpy(), (tx + hi).numpy(), (ty + lo).numpy(), (ty + hi).numpy()
+
+
+@pytest.mark.parametrize("interp", INTERPS, ids=lambda m: m.name)
+@pytest.mark.parametrize("h,w,h_out,w_out", [
+    (40, 56, 36, 48), (215, 283, 172, 353), (37, 53, 16, 64), (9, 300, 70, 70), (1, 1, 3, 5),
+    (1368, 2432, 684, 1216),
+])
+def test_interior_tile_boxes_hold_every_tap(interp, h, w, h_out, w_out):
+    """Whenever the host twin of the kernel's rule calls a tile interior,
+    every tap the plain version reads for the tile's pixels lies inside
+    the tile's box, and the box inside the image: seeded scale, rotate,
+    translate and flip matrices, tiles at every corner of the image."""
+    matrices = affine_matrices(h * w + int(interp), h, w, h_out, w_out, 12)
+    matrices += [np.array([[1, 0, 0], [0, 1, 0]], np.float32),            # taps touch every edge
+                 np.array([[1, 0, 2.0], [0, 1, 2.0]], np.float32),
+                 np.array([[0.25, 0, 5.0], [0, 0.25, 5.0]], np.float32),          # a small source box
+                 np.array([[1, 0, w - w_out - 3.0], [0, 1, h - h_out - 3.0]], np.float32),
+                 np.array([[-1, 0, w - 2.5], [0, -1, h - 2.5]], np.float32),
+                 np.array([[np.nan, 0, 0], [0, 1, 0]], np.float32),
+                 np.array([[1e30, 0, 0], [0, 1e-30, 5]], np.float32)]
+    interior_tiles = 0
+    for m in matrices:
+        interior, x_lo, x_hi, y_lo, y_hi = wk.tile_boxes(m, h_out, w_out, interp, h, w)
+        assert interior.shape == (-(-h_out // wk.TILE_Y), -(-w_out // wk.TILE_X))
+        if not interior.any():
+            continue
+        tx_lo, tx_hi, ty_lo, ty_hi = tap_indices(m, interp, h_out, w_out)
+        for ty, tx in zip(*np.nonzero(interior)):
+            tile = (slice(ty * wk.TILE_Y, (ty + 1) * wk.TILE_Y),
+                    slice(tx * wk.TILE_X, (tx + 1) * wk.TILE_X))
+            box = (x_lo[ty, tx], x_hi[ty, tx], y_lo[ty, tx], y_hi[ty, tx])
+            assert box[0] <= tx_lo[tile].min() and tx_hi[tile].max() <= box[1], (m, box)
+            assert box[2] <= ty_lo[tile].min() and ty_hi[tile].max() <= box[3], (m, box)
+            assert 0 <= box[0] and box[1] <= w - 1 and 0 <= box[2] and box[3] <= h - 1, (m, box)
+            interior_tiles += 1
+    if min(h, w) >= 37:
+        assert interior_tiles > 0   # the sweep does reach the interior rule
+
+
+def test_tile_paths_at_config_5_and_over_budget():
+    """At BASELINE config 5 nearly every tile is interior (the rest touch
+    the border): the cubic kernel stages them, linear reads them directly;
+    a strong downscale's boxes exceed the budget and are read directly; a
+    strided source is never staged."""
+    batch = torch.zeros((2, 1440, 2560, 3), dtype=torch.uint8)
+    crop = batch[:, 36:1404, 64:2496].permute(0, 3, 1, 2)
+    minv = vt.invert_affine(np.array([[0.9, 0.03, 40.0], [-0.03, 0.9, 25.0]], np.float32))
+    for src in (crop, crop.contiguous(), crop.float()):
+        for interp in (vt.INTER_LINEAR, vt.INTER_CUBIC):
+            paths = wk.tile_paths(src, minv, 684, 1216, interp)
+            taken, other = ("staged", "direct") if interp == vt.INTER_CUBIC else ("direct", "staged")
+            assert sum(paths.values()) == 2 * 19 * 43 and paths[other] == 0
+            assert paths[taken] > 0.9 * sum(paths.values())
+    cubic = vt.INTER_CUBIC
+    assert wk.tile_paths(crop, minv, 684, 1216, cubic, path="no_stage")["staged"] == 0
+    assert wk.tile_paths(crop, minv, 684, 1216, cubic, path="edge_only")["edge"] == 2 * 19 * 43
+    shrink = np.array([[6.0, 0, 100], [0, 6.0, 100]], np.float32)   # 384 x 96 source px a tile
+    paths = wk.tile_paths(crop, shrink, 128, 256, cubic)
+    assert paths["staged"] == 0 and paths["direct"] > 0
+    gaps = batch[:, :, ::2].permute(0, 3, 1, 2)[:, :2]              # HWC with x stride 6: staged
+    assert wk.tile_paths(gaps, minv, 200, 300, cubic)["staged"] > 0
+    strided = torch.zeros((2, 3, 400, 800), dtype=torch.uint8)[..., ::2]   # planes, x stride 2
+    paths = wk.tile_paths(strided, minv, 200, 300, cubic)
+    assert paths["staged"] == 0 and paths["direct"] > 0
+
+
+# ---- a seeded fuzz of the plain gather against the JAX package's jnp route ----
+
+FUZZ_SIZES = [((1, 1), (3, 2)), ((2, 3), (5, 4)), ((7, 5), (9, 11)), ((37, 53), (41, 29))]
+
+
+@pytest.mark.parametrize("border", BORDERS, ids=lambda b: b.name)
+@pytest.mark.parametrize("interp", INTERPS, ids=lambda m: m.name)
+@pytest.mark.parametrize("size,dsize", FUZZ_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_fuzz_plain_gather_matches_jnp(size, dsize, interp, border):
+    """Maps that overshoot the source past both edges, every border, odd
+    and tiny sizes, through ``VACV_BACKEND=jnp``'s route of the JAX
+    package: u8 within 1 LSB, f32 at cosine >= 1 - 1e-4 (max-abs printed)."""
+    h, w = size
+    flags = int(interp) | int(vt.WARP_INVERSE_MAP)
+    for i, m in enumerate(affine_matrices(h * 100 + w, h, w, dsize[1], dsize[0], 4)):
+        for dtype in (np.uint8, np.float32):
+            src = image(20 + i, shape=(h, w, 3), dtype=dtype)
+            want = jax_warp(src, m, dsize, flags, int(border), 11.0, backend="jnp")
+            got = vt.warp_affine(src, m, dsize, flags, border, 11.0).numpy()
+            assert got.shape == want.shape and got.dtype == want.dtype
+            d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+            if dtype == np.uint8:
+                assert d.max() <= 1, (m, d.max())
+            else:
+                cos = vt.utils.compare.cosine_similarity(got, want)
+                print(f"fuzz {size}->{dsize} {interp.name} {border.name} #{i}: f32 max_abs={d.max()}")
+                assert cos >= 1 - 1e-4, (m, cos, d.max())

@@ -17,15 +17,31 @@ Backend preference:
   runs the kernel's plain PyTorch version.
 * ``"torch"``: force the chain of plain PyTorch ops (the counterpart of
   the JAX package's ``"jnp"`` backend).
+
+The starting preference comes from the ``VACV_BACKEND`` environment
+variable, read once at import as ``vacv_tpu.config`` reads it, under
+either package's names: ``jnp`` or ``torch`` start as ``"torch"``;
+``auto``, ``pallas`` or no variable as ``"auto"``; anything else raises.
 """
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 
 import torch
 
 _VALID = ("auto", "torch")
-_BACKEND = "auto"
+_ENV_NAMES = {"auto": "auto", "pallas": "auto", "torch": "torch", "jnp": "torch"}
+
+
+def _backend_from_env() -> str:
+    name = os.environ.get("VACV_BACKEND", "auto")
+    if name not in _ENV_NAMES:
+        raise ValueError(f"VACV_BACKEND must be one of {tuple(_ENV_NAMES)}, got {name!r}")
+    return _ENV_NAMES[name]
+
+
+_BACKEND = _backend_from_env()
 _DEVICES = ("cuda", "cpu")
 _DEVICE = "cuda"
 

@@ -1,5 +1,4 @@
-// Deterministic sum over a 1-D thread block, shared by preprocess.cu and
-// normalize.cu.
+// Deterministic sum over a 1-D thread block (preprocess.cu).
 #pragma once
 
 namespace vacv {

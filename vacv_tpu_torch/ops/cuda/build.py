@@ -29,6 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "vacv_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "--split-compile", "0",  # a source's kernels optimised in parallel (CUDA 12.1 on)
     "-Xptxas", "-v",
 )
 

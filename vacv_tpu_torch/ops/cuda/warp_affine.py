@@ -9,10 +9,20 @@ input's type, for every interpolation (linear, nearest, cubic) and border
 the reference's ``edge_mode="vacv"`` skip-edge mask.
 
 On a CUDA tensor it launches the hand-written kernel
-(``vacv_tpu_torch/csrc/warp_affine.cu``), counted as ``"warp_affine"``, or
-raises: u8 and f32 directly, other float types through an f32 copy and
+(``vacv_tpu_torch/csrc/warp_affine.cuh``, built from ``warp_affine.cu`` and
+``warp_affine_f32.cu``), counted as ``"warp_affine"``, or raises: u8 and
+f32 directly, other float types through an f32 copy and
 narrowed on write-out.  On a CPU tensor it runs the plain version
 ``warp_planes_batch_torch``, counted as ``"warp_affine_torch"``.
+
+The kernel works in 64 x 16 output tiles and decides per tile how to read
+the source: from a copy of the tile's source box in shared memory
+("staged": cubic only), straight from memory without the border rule
+("direct"), or tap by tap under the border rule ("edge").  ``tile_boxes`` and
+``tile_paths`` are that decision on the host, in the kernel's own float32
+expressions, so that a CPU test can hold the box (a staged box that misses
+a tap would be an out-of-bounds shared read) and a caller can see which
+path a call takes.
 """
 from __future__ import annotations
 
@@ -28,6 +38,12 @@ from ..warp_affine import INTERPS, warp_epilogue, warp_planes_torch
 from . import build
 
 _MAX_GRID_Z = 65535  # frames x channel groups
+# The kernel's constants (csrc/warp_affine.cuh: kTileX, kTileY, kGroup,
+# kStageBytes, kFastLimit).
+TILE_X, TILE_Y, GROUP = 64, 16, 4
+STAGE_BYTES = 24576
+FAST_LIMIT = 1 << 22
+PATHS = ("auto", "no_stage", "edge_only")  # the kernel's `mode` 0, 1, 2
 _BORDERS = (BorderMode.BORDER_CONSTANT, BorderMode.BORDER_REPLICATE, BorderMode.BORDER_REFLECT,
             BorderMode.BORDER_WRAP, BorderMode.BORDER_REFLECT_101)
 
@@ -36,8 +52,6 @@ _BORDERS = (BorderMode.BORDER_CONSTANT, BorderMode.BORDER_REPLICATE, BorderMode.
 def _entry_points():
     lib = build.library().lib
     i, p, ll, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    group = lib.vacv_warp_affine_group
-    group.restype, group.argtypes = i, []
     fn = lib.vacv_warp_affine
     fn.restype = i
     fn.argtypes = [
@@ -45,9 +59,77 @@ def _entry_points():
         ll, ll, ll, ll,               # source strides n, c, y, x
         p, i, i, ll, ll, ll, ll,      # out, h_out, w_out, output strides n, c, y, x
         f, f, f, f, f, f,             # the inverse matrix
-        i, i, f, i,                   # interp, border, border value, vacv
+        i, i, f, i, i,                # interp, border, border value, vacv, mode
     ]
-    return lib, group(), fn
+    return lib, fn
+
+
+def tile_boxes(minv, h_out: int, w_out: int, interp, h: int, w: int):
+    """The kernel's per-tile source box, for every output tile at once.
+
+    Returns ``(interior, x_lo, x_hi, y_lo, y_hi)``, arrays over the tile
+    grid (rows of tiles, tiles in a row).  Where ``interior`` is true,
+    every tap that any pixel of the tile reads lies in ``[x_lo, x_hi] x
+    [y_lo, y_hi]`` and that box lies inside the h x w image.  The rule:
+    the source coordinate is affine and each float32 rounding step is
+    monotone, so the tile's four corners bound it; their floors are grown
+    by the tap support (linear and nearest reach one to the right, cubic
+    one to the left and two to the right) and by one more on each side."""
+    cubic = InterMode(interp) == InterMode.INTER_CUBIC
+    g_lo, g_hi = (2, 3) if cubic else (1, 2)
+    m = np.asarray(minv, np.float32).reshape(6)
+    x0 = np.arange(0, w_out, TILE_X)
+    y0 = np.arange(0, h_out, TILE_Y)
+    ex = np.stack([x0, np.minimum(x0 + TILE_X, w_out) - 1]).astype(np.float32)  # (2, tiles x)
+    ey = np.stack([y0, np.minimum(y0 + TILE_Y, h_out) - 1]).astype(np.float32)  # (2, tiles y)
+    fdx = ex[None, :, None, :]  # corner (iy, ix), tile (ty, tx)
+    fdy = ey[:, None, :, None]
+    ok = np.full((y0.size, x0.size), h < FAST_LIMIT and w < FAST_LIMIT)
+    boxes = []
+    with np.errstate(invalid="ignore", over="ignore"):
+        for row, n in ((0, w), (3, h)):
+            c = (m[row] * fdx + m[row + 1] * fdy) + m[row + 2]   # float32, the kernel's order
+            fl = np.floor(c).reshape(4, y0.size, x0.size)
+            ok &= ((fl >= np.float32(g_lo)) & (fl <= np.float32(n - 1 - g_hi))).all(axis=0)
+            safe = np.where(ok, fl, 0.0)
+            boxes += [safe.min(axis=0).astype(np.int64) - g_lo,
+                      safe.max(axis=0).astype(np.int64) + g_hi]
+    return (ok, *boxes)
+
+
+def tile_paths(planes, minv, h_out: int, w_out: int, interp=InterMode.INTER_LINEAR,
+               path: str = "auto") -> dict:
+    """How many of a call's tiles (over frames and channel groups) take
+    each of the kernel's paths: ``{"staged": n, "direct": n, "edge": n}``,
+    from the planes' shape, strides, type and address as the kernel
+    decides it."""
+    n, c, h, w = planes.shape
+    sn, sc, sy, sx = planes.stride()
+    es = planes.element_size()
+    interior, x_lo, x_hi, y_lo, y_hi = tile_boxes(minv, h_out, w_out, interp, h, w)
+    counts = {"staged": 0, "direct": 0, "edge": 0}
+    if path == "edge_only":
+        interior = np.zeros_like(interior)
+    hwc = sx != 1 and sc == 1 and sx >= c
+    # Only the cubic kernel stages (16 taps a pixel); see csrc/warp_affine.cuh.
+    stageable = (path == "auto" and InterMode(interp) == InterMode.INTER_CUBIC
+                 and (sx == 1 or hwc))
+    vec = (sy * es) % 16 == 0 and (hwc or (sc * es) % 16 == 0)
+    bw, bh = x_hi - x_lo + 1, y_hi - y_lo + 1
+    per = 16 // es
+    for frame in range(n):
+        for c0 in range(0, c, GROUP):
+            cn = min(GROUP, c - c0)
+            run = (bw - 1) * sx + cn if hwc else bw
+            rows = bh if hwc else bh * cn
+            origin = planes.data_ptr() + (frame * sn + c0 * sc + y_lo * sy + x_lo * sx) * es
+            skew = (origin % 16) // es if vec else 0
+            pitch = -(-(skew + run) // per) * per if vec else run
+            staged = interior & stageable & (rows * pitch * es <= STAGE_BYTES)
+            counts["staged"] += int(staged.sum())
+            counts["direct"] += int((interior & ~staged).sum())
+            counts["edge"] += int((~interior).sum())
+    return counts
 
 
 def _check(planes, interp, border):
@@ -76,13 +158,17 @@ def warp_planes_batch_torch(planes, minv, h_out: int, w_out: int, *,
     return warp_epilogue(res, interp, planes.dtype)
 
 
-def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out):
+def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out, path="auto"):
     n, c, h, w = planes.shape
-    lib, group, fn = _entry_points()
-    if n * -(-c // group) > _MAX_GRID_Z:
+    lib, fn = _entry_points()
+    if path not in PATHS:
+        raise ValueError(f"warp path must be one of {PATHS}, got {path!r}")
+    if n * -(-c // GROUP) > _MAX_GRID_Z:
         raise ValueError(f"warp kernel takes at most {_MAX_GRID_Z} frame x channel groups")
-    if h_out > 65535 * 8:
+    if h_out > 65535 * TILE_Y:
         raise ValueError("warp kernel output is too tall")
+    if min(planes.stride()) < 0:
+        raise ValueError("warp kernel needs non-negative source strides")
     dev = planes.device
     if out.numel() == 0 or planes.numel() == 0:
         if out.numel():
@@ -93,7 +179,7 @@ def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out):
             planes.data_ptr(), int(planes.dtype == torch.uint8), n, c, h, w, *planes.stride(),
             out.data_ptr(), h_out, w_out, *out.stride(),
             *(float(v) for v in m), int(InterMode(interp)), int(BorderMode(border)),
-            float(bv), int(vacv))
+            float(bv), int(vacv), PATHS.index(path))
     build.check(lib, rc, "warp kernel")
     config.record_kernel("warp_affine")
     return out
@@ -101,15 +187,18 @@ def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out):
 
 def warp_planes_batch(planes, minv, h_out: int, w_out: int, *,
                       interp=InterMode.INTER_LINEAR, border=BorderMode.BORDER_CONSTANT,
-                      border_value=0.0, edge_mode="opencv", out=None):
+                      border_value=0.0, edge_mode="opencv", out=None, path="auto"):
     """Warp (N, C, h, w) planes of any strides with the 2×3 inverse matrix
     ``minv`` into (N, C, h_out, w_out) of the planes' type.
 
     ``out``, if given, is written in place (any strides, e.g. a permuted
-    view of an HWC tensor) and returned.  Raises ValueError for inputs the
-    kernel does not take (not rank 4, an integer type other than uint8,
-    an interpolation other than linear/nearest/cubic, a border other than
-    CONSTANT/REPLICATE/REFLECT/WRAP/REFLECT_101)."""
+    view of an HWC tensor) and returned.  ``path`` (CUDA only) holds the
+    kernel's paths to each other: "auto" lets each tile choose, "no_stage"
+    never copies a tile's source box into shared memory, "edge_only" runs
+    every tile through the per-tap border rule.  Raises ValueError for
+    inputs the kernel does not take (not rank 4, an integer type other than
+    uint8, an interpolation other than linear/nearest/cubic, a border other
+    than CONSTANT/REPLICATE/REFLECT/WRAP/REFLECT_101, an unknown path)."""
     _check(planes, interp, border)
     shape = planes.shape[:2] + (h_out, w_out)
     if out is None:
@@ -119,11 +208,12 @@ def warp_planes_batch(planes, minv, h_out: int, w_out: int, *,
     vacv = edge_mode == "vacv"
     if planes.device.type == "cuda":
         if planes.dtype in (torch.uint8, torch.float32):
-            return _launch(planes, minv, h_out, w_out, interp, border, border_value, vacv, out)
+            return _launch(planes, minv, h_out, w_out, interp, border, border_value, vacv, out,
+                           path)
         # f16 / bf16 / f64: warped in f32 and narrowed on write-out.
         wide = torch.empty(shape, dtype=torch.float32, device=planes.device)
         _launch(planes.to(torch.float32), minv, h_out, w_out, interp, border, border_value,
-                vacv, wide)
+                vacv, wide, path)
         return out.copy_(wide)
     if planes.device.type != "cpu":
         raise ValueError(f"no warp route for device {planes.device}")
