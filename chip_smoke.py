@@ -16,8 +16,14 @@ Phases, each printed as it runs:
    at full width: the config-4 fused kernel (32 frames of 1080x1920, the
    BASELINE config-4 crop, 224x224 out) and odd frames; the NV fused
    kernel (32 stacked NV buffers of 1620x1920, the same crop; NV21, NV12,
-   RGB, every stats mode, int and device tops) and odd frames; yuv2bgr
-   (bit-exact, 1080p and odd heights); normalize ((3, 1080, 1920) and
+   RGB, every stats mode, int and device tops) and odd frames, its
+   one-pass form also bit for bit against the host twin of its statistics
+   over the normalize=False output, against the two-launch form, the same
+   bits on a second call and one launch a call, at the tracking ROI too;
+   yuv2bgr (bit-exact at every vector width: 4K, 1080p, 720p, 144x176,
+   widths 1928 and 284, tiny frames, odd heights, odd-offset and strided
+   views);
+   normalize ((3, 1080, 1920) and
    (3, 224, 224), then odd sizes: one element, h*w no multiple of 4, a
    prime, 64 planes, more planes than resident blocks, slices larger than
    shared memory; f32 and u8, from bases 0, 1 and 3 elements above a
@@ -69,12 +75,19 @@ Phases, each printed as it runs:
    kernel at (3, 1080, 1920) and (3, 224, 224), f32 and u8, and the warp
    kernel at config 5 (linear, cubic, nearest, planar, f32) with the
    kernels launched per call (one each, asserted), config 5's batch by
-   kernel, the normalize kernel's two launch forms and the warp kernel's
-   three paths side by side, and the path every timed warp case took.
+   kernel, yuv2bgr at 1080p, 720p and 144x176 (warm and with its source out
+   of L2) and the fused NV kernel at the camera batch (self and static
+   statistics) and the tracking frame (one launch each, asserted), the
+   normalize kernel's two launch forms and the warp kernel's three paths
+   side by side, the path every timed warp case took, yuv2bgr at every
+   vector width over five frame sizes, and the NV one-pass form at every
+   count of blocks a frame the card holds, beside its two-launch form, at
+   1, 8, 32 and 128 frames.
 
 ``python3 chip_smoke.py --kernel-times`` runs the device and build phases
-and the normalize, warp and config-5 profiler timings alone; a copy of this
-script in an earlier checkout times that tree's kernels with the same code.
+and the normalize, warp, config-5, yuv2bgr and fused NV profiler timings
+alone; a copy of this script in an earlier checkout times that tree's
+kernels with the same code.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -318,20 +331,105 @@ def phase_compare_nv() -> float:
         compare_nv(f"NV21 frame {h}x{w} crop {r}", small, r, out, "cos")
         compare_nv(f"NV12 frame {h}x{w} crop {r} normalize=False", small, r, out, "lsb",
                    is_nv12=True, normalize=False)
-    return head
+    return max(head, phase_compare_nv_one_pass(nv))
+
+
+def check_one_pass(label, nv, rect, out, **kw) -> float:
+    """The NV one-pass form against the plain version (cosine >= 1-1e-6,
+    max-abs printed), bit for bit against the host twin of its statistics
+    over the ``normalize=False`` output (its u8 values are those), against
+    the forced two-launch form (cosine >= 1-1e-6) and the same bits on a
+    second call (its one launch a call is asserted in ``kernel_times``).
+    Returns the max-abs error."""
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    plan = pk.nv_launch_plan(nv.shape[0], out[1], out[0], pk.nv_limits(0))
+    require(plan.form == "one_pass", f"{label}: plan {plan}")
+    got = pk.preprocess_fused_nv_batch(nv, rect, out, **kw)
+    raw = pk.preprocess_fused_nv_batch(nv, rect, out, normalize=False, **kw)
+    two = pk.preprocess_fused_nv_batch(nv, rect, out, form="two_launch", **kw)
+    again = pk.preprocess_fused_nv_batch(nv, rect, out, **kw)
+    err = check(f"{label} one-pass ({plan.blocks} blocks a frame)", got,
+                pk.preprocess_fused_nv_batch_torch(nv, rect, out, **kw), "cos")
+    mu, inv = pk.one_pass_stats(raw, kw.get("mean"), kw.get("stddev"))
+    require(torch.equal(got, (raw - mu[..., None, None]) * inv[..., None, None]),
+            f"{label}: one-pass output is not its statistics over the normalize=False output")
+    cos2 = cosine(got, two)
+    log(f"[compare] {label}: one-pass vs two-launch 1-cos={1 - cos2} "
+        f"max_abs={(got - two).abs().max().item()}; u8 values = normalize=False output, "
+        f"the same bits on a second call")
+    require(cos2 >= 1 - 1e-6, f"{label}: one-pass vs two-launch")
+    require(torch.equal(got, again), f"{label}: one-pass differs between two calls")
+    return err
+
+
+def phase_compare_nv_one_pass(nv) -> float:
+    """The one-pass form at the camera main path's shape (NV21/NV12, BGR/RGB,
+    self, static-mean-self-σ and self-mean-static-σ statistics, int and
+    device tops), the tracking ROI and odd frames."""
+    from vacv_tpu_torch.core.types import VRect
+
+    rect, out = VRect(LEFT, TOP, LEFT + CW, TOP + CH), (OUT, OUT)
+    worst = 0.0
+    for is_nv12 in (False, True):
+        for to_rgb in (False, True):
+            for stats, kw in (("self", {}), ("static mean, self stddev", dict(mean=STATIC["mean"])),
+                              ("self mean, static stddev", dict(stddev=STATIC["stddev"]))):
+                name = f"NV{12 if is_nv12 else 21}{' to_rgb' if to_rgb else ''} {stats}"
+                worst = max(worst, check_one_pass(name, nv, rect, out, is_nv12=is_nv12,
+                                                  to_rgb=to_rgb, **kw))
+    top_dev = torch.tensor(41, dtype=torch.int32, device="cuda")
+    worst = max(worst, check_one_pass("NV21 top=41 (device tensor)", nv, rect, out, top=top_dev))
+    frames, _, _ = tracking_stream(n=1)
+    roi = VRect(0, 0, TRACK_W, TRACK_ROI)
+    worst = max(worst, check_one_pass(f"tracking 1x{TRACK_H}x{TRACK_W} ROI {TRACK_W}x{TRACK_ROI}",
+                                      frames[0][None], roi, out, top=200))
+    for h, w, r, o in [(144, 176, None, (176, 144)), (214, 284, VRect(11, 7, 271, 203), out),
+                       (2, 2, None, out), (360, 640, VRect(1, 3, 640, 360), (99, 37))]:
+        small = make_nv(3, h, w, seed=h + w + 2)
+        worst = max(worst, check_one_pass(f"NV21 frame {h}x{w} crop {r} -> {o}", small, r, o))
+    log(f"[compare] NV one-pass: worst max_abs={worst} against the plain version")
+    return worst
+
+
+def nv_view(h, w, view, seed):
+    """Y and VU planes of a stacked NV buffer on the card: "stacked",
+    "odd_offset" (one byte above an aligned allocation) or "strided" (rows
+    2048 bytes apart, or 8 past the width)."""
+    rows = h + (h + 1) // 2
+    pitch = {"stacked": w, "odd_offset": w, "strided": max(2048, w + 8)}[view]
+    offset = 1 if view == "odd_offset" else 0
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    flat = torch.randint(0, 256, (rows * pitch + offset,), generator=g, dtype=torch.uint8,
+                         device="cuda")
+    buf = flat[offset:].view(rows, pitch)[:, :w]
+    return buf[:h], buf[h:]
 
 
 def phase_compare_yuv2bgr() -> float:
-    """yuv2bgr bit-exact against its plain version, odd heights included."""
-    from vacv_tpu_torch.ops.cuda.yuv2bgr import nv_to_bgr
+    """yuv2bgr bit-exact against its plain version at every vector width
+    (8 at 4K, 1080p and a 1928 width; 4 at 720p and a 284 width; 2 at
+    144x176, an odd base and tiny frames), odd heights and strided views."""
+    from vacv_tpu_torch.ops.cuda.yuv2bgr import nv_to_bgr, vector_width
     from vacv_tpu_torch.ops.cvt_color import nv_to_bgr_planes_torch
 
-    for h, w in [(H, W), (H - 1, W), (215, 284)]:
-        buf = make_nv(1, h, w, seed=h)[0]
-        for is_nv12 in (False, True):
-            got = torch.stack(nv_to_bgr(buf[:h], buf[h:], is_nv12=is_nv12))
-            want = torch.stack(nv_to_bgr_planes_torch(buf[:h], buf[h:], is_nv12=is_nv12))
-            check(f"yuv2bgr NV{12 if is_nv12 else 21} {h}x{w}", got, want, "exact")
+    seen = {}
+    for h, w in [(2 * H, 2 * W), (H, W), (H - 1, W), (TRACK_H, TRACK_W), (144, 176), (H - 1, 284),
+                 (215, 284), (H, 1928), (3, 6), (1, 2)]:
+        for view in ("stacked", "odd_offset", "strided"):
+            y, vu = nv_view(h, w, view, seed=h + w)
+            for is_nv12 in (False, True):
+                planes = nv_to_bgr(y, vu, is_nv12=is_nv12)
+                v = vector_width(h, w, y.data_ptr(), y.stride(0), vu.data_ptr(), vu.stride(0),
+                                 planes[0].data_ptr())
+                got = torch.stack(planes)
+                want = torch.stack(nv_to_bgr_planes_torch(y, vu, is_nv12=is_nv12))
+                check(f"yuv2bgr NV{12 if is_nv12 else 21} {h}x{w} {view} (stride {y.stride(0)}, "
+                      f"{v} bytes a thread)", got, want, "exact")
+                seen[v] = seen.get(v, 0) + 1
+    log(f"[compare] yuv2bgr: cases by vector width {seen}, all bit-exact")
+    require(set(seen) == {2, 4, 8}, f"yuv2bgr: not every vector width ran: {seen}")
     return 0.0
 
 
@@ -819,21 +917,25 @@ def device_profile(fn, n=20):
     ``n`` calls after one warm-up call.  The profiler now and then drops a
     launch's record (49 of 50), so a kernel's launches per call are its
     records over ``n`` rounded, and its time per call their mean time
-    times that."""
+    times that; a window in which it recorded no kernel at all is taken
+    again (up to three times)."""
     from vacv_tpu_torch.utils.perf import profiler_trace
 
     fn()
     torch.cuda.synchronize()
-    with profiler_trace("build/device_us") as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profiler_trace("build/device_us") as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        if events:
+            break
     kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
-            per_call = max(1, round(e.count / n))
-            kernels[e.key] = ((getattr(e, "device_time_total", 0) or 0) / e.count * per_call,
-                              per_call)
+    for e in events:
+        per_call = max(1, round(e.count / n))
+        kernels[e.key] = ((getattr(e, "device_time_total", 0) or 0) / e.count * per_call, per_call)
     return sum(t for t, _ in kernels.values()), kernels
 
 
@@ -843,19 +945,26 @@ NORMALIZE_KERNELS = ("normalize_", "partials_kernel", "merge_kernel", "scale_ker
 def kernel_times(card: str) -> dict:
     """The profiler's device time per call of the normalize kernel at the
     shapes the main paths and the table use, of the warp kernel at BASELINE
-    config 5's geometry, and of one config-5 batch by kernel.
+    config 5's geometry, of one config-5 batch by kernel, of yuv2bgr at
+    1080p, 720p and 144x176 (warm, and with the source out of L2), and of
+    the fused NV kernel at the camera main path's batch (self and static
+    statistics) and the tracking flow's frame.
 
     ``python3 chip_smoke.py --kernel-times`` runs the device and build
     phases and this alone.  It calls only ``normalize_fused(x)``,
-    ``warp_planes_batch(...)`` and ``Preprocessor.batch``, so a copy of this
-    script in an earlier checkout of the repo times that tree's kernels with
-    the same code, in the same call on the same card.  Returns {label:
-    (device µs per call, kernel launches per call)}."""
+    ``warp_planes_batch(...)``, ``Preprocessor.batch``, ``nv_to_bgr`` and
+    ``preprocess_fused_nv_batch`` with arguments that earlier versions of
+    the port take too, so a copy of this script in an earlier checkout of
+    the repo times that tree's kernels with the same code, in the same call
+    on the same card.  Returns {label: (device µs per call, kernel launches per
+    call)}."""
     import vacv_tpu_torch as vt
     from vacv_tpu_torch.core.types import VRect
     from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
     from vacv_tpu_torch.ops.cuda.normalize import normalize_fused
+    from vacv_tpu_torch.ops.cuda.preprocess import preprocess_fused_nv_batch
     from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch
+    from vacv_tpu_torch.ops.cuda.yuv2bgr import nv_to_bgr
 
     out = {}
 
@@ -903,6 +1012,43 @@ def kernel_times(card: str) -> dict:
     out["config 5 main path"] = (total, sum(c for _, c in kernels.values()))
     out["config 5 normalize share"] = (norm, 0)
     out["config 5 warp share"] = (warp, 0)
+    del batch, crop
+
+    # The camera kernels: yuv2bgr on one frame, warm (back-to-back calls,
+    # the source in L2) and with 96 MB written before each call (the source
+    # out of the 50 MB L2); the fused NV kernel on the camera main path's
+    # batch and on the tracking flow's one frame.
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+
+    def measure_cold(label, fn, key, n=20):
+        def run():
+            flush.zero_()
+            return fn()
+
+        _, kernels = device_profile(run, n)
+        mine = [(t, c) for k, (t, c) in kernels.items() if key in k]
+        total, launches = sum(t for t, _ in mine), sum(c for _, c in mine)
+        log(f"[time] {label}: {total:.2f} us device per call in {launches:g} launches [{card}]")
+        out[label] = (total, launches)
+
+    for h, w in ((H, W), (TRACK_H, TRACK_W), (144, 176)):
+        buf = make_nv(1, h, w, seed=h)[0]
+        y, vu = buf[:h], buf[h:]
+        measure(f"yuv2bgr {h}x{w}", lambda: nv_to_bgr(y, vu, is_nv12=False), n=100)
+        measure_cold(f"yuv2bgr {h}x{w}, source out of L2", lambda: nv_to_bgr(y, vu, is_nv12=False),
+                     "yuv2bgr")
+    del flush
+    rect = VRect(LEFT, TOP, LEFT + CW, TOP + CH)
+    nv = make_nv(BATCH, H, W, seed=1)
+    measure(f"NV21 fused {BATCH}x{H}x{W} -> {OUT}, self stats",
+            lambda: preprocess_fused_nv_batch(nv, rect, (OUT, OUT)))
+    measure(f"NV21 fused {BATCH}x{H}x{W} -> {OUT}, static stats",
+            lambda: preprocess_fused_nv_batch(nv, rect, (OUT, OUT), **STATIC))
+    frames, _, _ = tracking_stream(n=1)
+    one, roi = frames[0][None], VRect(0, 0, TRACK_W, TRACK_ROI)
+    top = torch.tensor(200, dtype=torch.int32, device="cuda")
+    measure(f"NV21 fused tracking 1x{TRACK_H}x{TRACK_W}, ROI {TRACK_W}x{TRACK_ROI} -> {OUT}, "
+            "self stats", lambda: preprocess_fused_nv_batch(one, roi, (OUT, OUT), top=top))
     return out
 
 
@@ -951,6 +1097,86 @@ def time_forms_and_paths(card: str) -> None:
         log(f"[time] warp config 5 {name}: tiles by path {tiles}; device time by path switch: "
             + ", ".join(f"{k} {v:.2f} us" for k, v in times.items()) + "; with the source out of "
             "L2: " + ", ".join(f"{k} {fmt_us(v or None)}" for k, v in cold.items()) + f" [{card}]")
+
+
+def nv_one_pass_with(batch, rect, top, plan):
+    """The fused NV kernel's one-pass form with ``plan``'s blocks a frame,
+    through the wrapper's own launch (the public call takes the plan's)."""
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    geom = pk._nv_geometry(batch, rect, (OUT, OUT), top)
+    return pk._launch(batch, geom, (False, False), top, None, None, True, True, "linear",
+                      "preprocess_fused_nv", plan=plan)
+
+
+def time_nv_one_pass_sweep(card: str) -> None:
+    """The NV one-pass form at every count of blocks a frame the card
+    holds at once, by the profiler's device time, beside the two-launch
+    form: at 8, 32 and 128 frames of the camera main path's batch and at
+    the tracking flow's one frame; every count gives the bits of the
+    plan's."""
+    from vacv_tpu_torch.core.types import VRect
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    frames, _, _ = tracking_stream(n=1)
+    rect = VRect(LEFT, TOP, LEFT + CW, TOP + CH)
+    cases = [(f"tracking 1x{TRACK_H}x{TRACK_W} ROI {TRACK_W}x{TRACK_ROI} -> {OUT}",
+              frames[0][None], VRect(0, 0, TRACK_W, TRACK_ROI), 200)]
+    cases += [(f"{n}x{H}x{W} -> {OUT}", make_nv(n, H, W, seed=n), rect, None) for n in (8, 32, 128)]
+    lim = pk.nv_limits(0)
+    for label, batch, rect, top in cases:
+        n, times = batch.shape[0], {}
+        ref = pk.preprocess_fused_nv_batch(batch, rect, (OUT, OUT), top=top)
+        for c in pk._GRID_BLOCKS:
+            plan = pk.one_pass_plan(n, OUT, OUT, lim, c)
+            if plan is None:
+                continue  # a grid barrier needs every block resident
+            require(torch.equal(nv_one_pass_with(batch, rect, top, plan), ref),
+                    f"NV one-pass {label}, {c} blocks: other bits than the plan's")
+            times[f"{c} blocks"] = device_profile(
+                lambda: nv_one_pass_with(batch, rect, top, plan), 30)[0]
+        times["two-launch"] = device_profile(
+            lambda: pk.preprocess_fused_nv_batch(batch, rect, (OUT, OUT), top=top, form="two_launch"),
+            30)[0]
+        auto = pk.nv_launch_plan(n, OUT, OUT, lim)
+        log(f"[time] NV one-pass sweep {label}: "
+            + ", ".join(f"{k} {v:.2f} us" for k, v in times.items())
+            + f"; the plan takes {auto.blocks} blocks, the fastest is {min(times, key=times.get)} "
+            f"({lim}) [{card}]")
+        del batch
+
+
+def time_yuv2bgr_widths(card: str) -> None:
+    """yuv2bgr at every vector width a stacked frame's layout allows, by the
+    profiler's device time, at config 2's 144x176, CIF, VGA, the tracking
+    frame, 1080p and 4K, beside the width ``vector_width`` picks; every
+    width gives the same bits."""
+    from vacv_tpu_torch.ops.cuda import build
+    from vacv_tpu_torch.ops.cuda import yuv2bgr as yk
+
+    lib, fn = yk._entry_points()
+    for h, w in ((144, 176), (288, 352), (480, 640), (TRACK_H, TRACK_W), (H, W), (2 * H, 2 * W)):
+        buf = make_nv(1, h, w, seed=h)[0]
+        y, vu = buf[:h], buf[h:]
+        want = torch.stack(yk.nv_to_bgr(y, vu, is_nv12=False))
+        times = {}
+        for v in (8, 4, 2):
+            out = torch.empty((3, h, w), dtype=torch.uint8, device="cuda")
+            if any(x % v for x in (w, h * w, y.data_ptr(), vu.data_ptr(), out.data_ptr())):
+                continue
+
+            def run(v=v, out=out):
+                stream = torch.cuda.current_stream().cuda_stream
+                build.check(lib, fn(0, stream, y.data_ptr(), w, vu.data_ptr(), w, out.data_ptr(),
+                                    h, w, 0, v), f"yuv2bgr at {v} bytes a thread")
+                return out
+
+            require(torch.equal(run(), want), f"yuv2bgr {h}x{w} at {v} bytes: other bits")
+            times[v] = device_profile(run, 100)[0]
+        pick = yk.vector_width(h, w, y.data_ptr(), w, vu.data_ptr(), w, want.data_ptr())
+        log(f"[time] yuv2bgr {h}x{w} by bytes a thread: "
+            + ", ".join(f"{v} {t:.2f} us" for v, t in times.items())
+            + f"; vector_width picks {pick}, the fastest is {min(times, key=times.get)} [{card}]")
 
 
 def fmt_us(us) -> str:
@@ -1187,9 +1413,19 @@ def phase_time_warp_corr(card: str) -> dict:
     return times
 
 
+# Kernel-name parts of the tracking frame's named shares.
+TRACKING_SHARES = {
+    "fused NV kernel": ("nv_one_pass", "NvSource", "normalize_kernel"),
+    "yuv2bgr": ("yuv2bgr",),
+    "stack to HWC after the decode": ("CatArrayBatchedCopy",),
+    "correlation": ("corr_kernel", "split_sum"),
+}
+
+
 def tracking_breakdown(run, card: str, n: int = 10) -> None:
     """One tracking frame's device time by kernel (the profiler over ``n``
-    frames), the largest first."""
+    frames): the fused NV kernel's, yuv2bgr's, the stack copy's and the
+    correlation's shares, then the largest kernels."""
     from vacv_tpu_torch.utils.perf import profiler_trace
 
     run()
@@ -1202,6 +1438,9 @@ def tracking_breakdown(run, card: str, n: int = 10) -> None:
                for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(t for t, _, _ in kernels) / n
     log(f"[time] tracking frame profiler device time {total:.2f} us/frame [{card}]")
+    for name, keys in TRACKING_SHARES.items():
+        t = sum(t for t, _, k in kernels if any(s in k for s in keys)) / n
+        log(f"[time]   {name}: {t:.2f} us/frame {100 * t / total:5.1f}%")
     for t, count, key in sorted(kernels, reverse=True)[:8]:
         log(f"[time]   {t / n:9.2f} us/frame {100 * t / n / total:5.1f}%  {count // n} "
             f"launches/frame  {key[:90]}")
@@ -1499,10 +1738,13 @@ def main() -> int:
              **phase_time_warp_corr(card), "probe_dot": probe_times}
     per_call = kernel_times(card)
     for label, (_, n_launches) in per_call.items():
-        if label.startswith("normalize") or label.startswith("warp"):
+        if label.startswith(("normalize", "warp", "yuv2bgr", "NV21")):
             require(n_launches == 1, f"{label}: {n_launches} kernel launches per call, expected 1")
-    log("[time] normalize and warp: one kernel launch per call at every timed shape")
+    log("[time] normalize, warp, yuv2bgr and the fused NV kernel (self and static statistics): "
+        "one kernel launch per call at every timed shape")
     time_forms_and_paths(card)
+    time_yuv2bgr_widths(card)
+    time_nv_one_pass_sweep(card)
     record = {"kernels": [{
         "name": name,
         "route": "cuda",

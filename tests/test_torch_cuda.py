@@ -187,16 +187,159 @@ def test_nv_kernel_odd_frames(cuda, h, w):
         assert_close(got, preprocess_fused_nv_batch_torch(nv, None, (224, 224), **kw), stats)
 
 
+def nv_view(device, h, w, view, seed):
+    """Y and VU planes of a stacked NV buffer on the card: "stacked" (one
+    contiguous buffer), "odd_offset" (the buffer one byte above an aligned
+    allocation), "strided" (rows 2048 bytes apart, or 8 past the width)."""
+    rows = h + (h + 1) // 2
+    pitch = {"stacked": w, "odd_offset": w, "strided": max(2048, w + 8)}[view]
+    offset = 1 if view == "odd_offset" else 0
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    flat = torch.randint(0, 256, (rows * pitch + offset,), generator=g, dtype=torch.uint8,
+                         device=device)
+    buf = flat[offset:].view(rows, pitch)[:, :w]
+    return buf[:h], buf[h:]
+
+
+@pytest.mark.parametrize("view", ["stacked", "odd_offset", "strided"])
 @pytest.mark.parametrize("is_nv12", [False, True])
-@pytest.mark.parametrize("h,w", [(1080, 1920), (1079, 1920), (215, 284), (1, 2)])
-def test_yuv2bgr_kernel_is_bit_exact(cuda, is_nv12, h, w):
-    buf = nv_on(cuda, n=1, h=h, w=w, seed=3)[0]
-    y, vu = buf[:h], buf[h:]
+@pytest.mark.parametrize("h,w", [(2160, 3840), (1080, 1920), (1079, 1920), (720, 1280),
+                                 (144, 176), (1079, 284), (215, 284), (1080, 1928), (3, 6),
+                                 (1, 2)])
+def test_yuv2bgr_kernel_is_bit_exact(cuda, is_nv12, h, w, view):
+    """Every vector width (8 at 4K, 1080p and a 1928 width, 4 at 720p and
+    a 284 width, 2 at 144x176, an odd base or a tiny frame), odd heights
+    and strided views."""
+    from vacv_tpu_torch.ops.cuda.yuv2bgr import vector_width
+
+    y, vu = nv_view(cuda, h, w, view, seed=3)
     got = nv_to_bgr(y, vu, is_nv12=is_nv12)
     want = nv_to_bgr_planes_torch(y, vu, is_nv12=is_nv12)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert a.device == cuda and torch.equal(a, b)
+    v = vector_width(h, w, y.data_ptr(), y.stride(0), vu.data_ptr(), vu.stride(0),
+                     got[0].data_ptr())
+    if view == "odd_offset":
+        assert v == 2
+    elif view == "stacked":
+        assert v == {(2160, 3840): 8, (1080, 1920): 8, (720, 1280): 4, (144, 176): 2}.get((h, w), v)
+
+
+def test_yuv2bgr_is_one_launch_a_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    y, vu = nv_view(cuda, 1080, 1920, "stacked", seed=4)
+    nv_to_bgr(y, vu, is_nv12=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            nv_to_bgr(y, vu, is_nv12=False)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(kernels.values()) == 5 and "yuv2bgr" in next(iter(kernels)), kernels
+
+
+# ---- the NV one-pass form -------------------------------------------------
+
+NV_STATS = {"self": {}, "static_mean": dict(mean=(104.0, 117.0, 123.0)),
+            "static_stddev": dict(stddev=(57.1, 57.4, 58.4))}
+
+
+def assert_one_pass(nv, rect, out, **kw):
+    """The one-pass form (as the plan picks it) against the plain version
+    (cosine >= 1-1e-6, max-abs < 1e-4), bit for bit against the host twin
+    of its statistics over the normalize=False output (so its u8 values are
+    those), at cosine >= 1-1e-6 against the forced two-launch form, and the
+    same bits on a second call."""
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    n, oh, ow = nv.shape[0], out[1], out[0]
+    plan = pk.nv_launch_plan(n, oh, ow, pk.nv_limits(0))
+    assert plan.form == "one_pass"
+    got = preprocess_fused_nv_batch(nv, rect, out, **kw)
+    raw = preprocess_fused_nv_batch(nv, rect, out, normalize=False, **kw)
+    two = preprocess_fused_nv_batch(nv, rect, out, form="two_launch", **kw)
+    again = preprocess_fused_nv_batch(nv, rect, out, **kw)
+    want = preprocess_fused_nv_batch_torch(nv, rect, out, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, 3, oh, ow) and bool(torch.isfinite(got).all())
+    assert cosine(got, want) >= 1 - 1e-6 and (got - want).abs().max().item() < 1e-4
+    mu, inv = pk.one_pass_stats(raw, kw.get("mean"), kw.get("stddev"))
+    assert torch.equal(got, (raw - mu[..., None, None]) * inv[..., None, None])
+    assert cosine(got, two) >= 1 - 1e-6
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("is_nv12", [False, True])
+@pytest.mark.parametrize("to_rgb", [False, True])
+@pytest.mark.parametrize("stats", list(NV_STATS))
+def test_nv_one_pass_matches_plain_version_and_its_twin(cuda, is_nv12, to_rgb, stats):
+    nv = nv_on(cuda, n=3, seed=10)
+    assert_one_pass(nv, NV_RECT, OUT, is_nv12=is_nv12, to_rgb=to_rgb, **NV_STATS[stats])
+
+
+@pytest.mark.parametrize("h,w,rect,out", [
+    (144, 176, None, (176, 144)),           # config 2's frame, not resized
+    (214, 284, VRect(11, 7, 271, 203), (224, 224)),
+    (2, 2, None, (224, 224)),
+    (720, 1280, VRect(0, 200, 1280, 520), (224, 224)),   # the tracking ROI
+    (360, 640, VRect(1, 3, 640, 360), (99, 37)),         # a width with no float4 rows
+])
+def test_nv_one_pass_odd_frames(cuda, h, w, rect, out):
+    assert_one_pass(nv_on(cuda, n=2, h=h, w=w, seed=11), rect, out)
+
+
+@pytest.mark.parametrize("top", [0, 1, 37, 120, 10_000])
+def test_nv_one_pass_runtime_top(cuda, top):
+    nv = nv_on(cuda, n=2, seed=12)
+    dev = preprocess_fused_nv_batch(nv, NV_RECT, OUT, top=torch.tensor(top, device=cuda))
+    host = preprocess_fused_nv_batch(nv, NV_RECT, OUT, top=top)
+    torch.cuda.synchronize()
+    assert torch.equal(dev, host)
+    assert_one_pass(nv, NV_RECT, OUT, top=min(top, 360 - 224))
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8, 16, 32, 64])
+def test_nv_one_pass_blocks_give_the_same_bits(cuda, blocks):
+    """Every count of blocks a frame the plan may take: the same bits."""
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    nv = nv_on(cuda, n=3, seed=13)
+    plan = pk.one_pass_plan(3, OUT[1], OUT[0], pk.nv_limits(0), blocks)
+    assert plan is not None and plan.blocks == blocks
+    geom = pk._nv_geometry(nv, NV_RECT, OUT, None)
+    got = pk._launch(nv, geom, (False, False), None, None, None, True, True, "linear",
+                     "preprocess_fused_nv", plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, preprocess_fused_nv_batch(nv, NV_RECT, OUT))
+
+
+def test_nv_one_pass_is_one_launch_a_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    nv = nv_on(cuda, n=32, h=1080, w=1920, seed=14)
+    rect = VRect(64, 28, 64 + 1792, 28 + 1036)
+    preprocess_fused_nv_batch(nv, rect, (224, 224))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            preprocess_fused_nv_batch(nv, rect, (224, 224))
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(kernels.values()) == 5 and "nv_one_pass" in next(iter(kernels)), kernels
+
+
+def test_nv_one_pass_refuses_calls_it_cannot_serve(cuda):
+    nv = nv_on(cuda, seed=15)
+    for kw in (dict(trunc_u8=False), dict(normalize=False),
+               dict(mean=(1.0, 2.0, 3.0), stddev=(4.0, 5.0, 6.0))):
+        with pytest.raises(ValueError):
+            preprocess_fused_nv_batch(nv, NV_RECT, OUT, form="one_pass", **kw)
 
 
 @pytest.mark.parametrize("shape", [(3, 1080, 1920), (3, 224, 224), (5, 37, 64)])
@@ -283,7 +426,7 @@ def test_new_launch_counters_rise_once_per_call(cuda):
     names = ("preprocess_fused_nv", "yuv2bgr", "normalize_fused",
              "preprocess_fused_nv_torch", "yuv2bgr_torch", "normalize_fused_torch")
     before = {k: config.kernel_count(k) for k in names}
-    preprocess_fused_nv_batch(nv, NV_RECT, OUT)                  # two launches, one call
+    preprocess_fused_nv_batch(nv, NV_RECT, OUT)                  # the one-pass form
     preprocess_fused_nv_batch(nv, NV_RECT, OUT, normalize=False)
     vt.cvt_color(nv[0], ColorCode.COLOR_YUV2BGR_NV21)
     normalize_fused(torch.rand((3, 64, 80), device=cuda))

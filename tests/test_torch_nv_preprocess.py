@@ -10,6 +10,8 @@ tests/test_preprocess_fused.py: cosine >= 1-1e-6 and max-abs < 0.05 on
 normalized output; with ``normalize=False`` at most 1 LSB, on under
 1e-3 of the values.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,10 @@ from vacv_tpu.utils.compare import cosine_similarity
 from vacv_tpu_torch import config
 from vacv_tpu_torch.core.types import VRect
 from vacv_tpu_torch.ops.cuda.preprocess import (
+    NvLimits,
+    nv_launch_plan,
+    one_pass_plan,
+    one_pass_stats,
     preprocess_fused_nv_batch,
     preprocess_fused_nv_batch_torch,
 )
@@ -200,3 +206,126 @@ def test_wrapper_rejects_bad_inputs():
         preprocess_fused_nv_batch(ok, None, (8, 8), top=torch.tensor(1.5))
     with pytest.raises(ValueError):
         preprocess_fused_nv_batch(ok.to("meta"), None, (8, 8))
+
+
+# ---- the one-pass form: its launch plan and its statistics -----------------
+
+H100 = NvLimits(sms=132, threads_per_sm=2048, smem_bytes=232448 - 128, smem_per_sm=233472)
+
+
+@pytest.mark.parametrize("n,oh,ow,kw,form,blocks", [
+    (32, 224, 224, {}, "one_pass", 16),          # the camera main path: 512 blocks of 256
+    (1, 224, 224, {}, "one_pass", 64),           # the tracking frame: a block an SM
+    (1, 144, 176, {}, "one_pass", 64),           # config 2's QCIF frame as the output
+    (2, 224, 224, {}, "one_pass", 64),
+    (3, 224, 224, {}, "one_pass", 32),           # blocks share SMs: 4 pixels a thread or more
+    (8, 224, 224, {}, "one_pass", 32),           # 7 rows a block
+    (128, 224, 224, {}, "one_pass", 4),
+    (1, 37, 99, {}, "one_pass", 32),             # no more blocks than output rows
+    (64, 8, 8, {}, "one_pass", 2),               # 128 blocks: no more than the SMs
+    (512, 8, 8, {}, "one_pass", 1),              # fewer than 4 pixels a thread at any count
+    (512, 224, 224, {}, "two_launch", 0),        # more blocks than the card holds at once
+    (32, 1080, 1920, {}, "two_launch", 0),       # strips larger than shared memory
+    (32, 224, 224, dict(trunc_u8=False), "two_launch", 0),
+    (32, 224, 224, dict(self_stats=False), "resize_only", 0),   # static mean and stddev
+    (32, 224, 224, dict(normalize=False), "resize_only", 0),
+    (32, 224, 224, dict(form="two_launch"), "two_launch", 0),
+])
+def test_nv_launch_plan(n, oh, ow, kw, form, blocks):
+    plan = nv_launch_plan(n, oh, ow, H100, **kw)
+    assert (plan.form, plan.blocks) == (form, blocks)
+    if form == "one_pass":
+        assert plan == one_pass_plan(n, oh, ow, H100, blocks)
+        assert plan.rows == -(-oh // blocks)
+        assert plan.chan % 16 == 0 and plan.chan >= plan.rows * ow + 3
+        assert 3 * plan.chan <= H100.smem_bytes
+        assert 2 * n * blocks * 256 <= H100.sms * H100.threads_per_sm
+        assert n * blocks <= H100.sms or plan.rows * ow >= 4 * 256 or oh * ow < 4 * 256
+        assert plan.stream == (n * 3 * oh * ow * 4 > 8 << 20)   # evict-first above 8 MB
+
+
+def test_nv_launch_plan_follows_the_card_and_the_caller():
+    small = NvLimits(132, 2048, smem_bytes=10_000, smem_per_sm=233472)
+    assert nv_launch_plan(32, 224, 224, small).blocks == 16       # 3 x 3152 bytes
+    assert nv_launch_plan(32, 448, 448, small).form == "two_launch"
+    few = NvLimits(sms=16, threads_per_sm=2048, smem_bytes=232448 - 128, smem_per_sm=233472)
+    assert nv_launch_plan(8, 224, 224, few).blocks == 8           # half of 16 SMs' threads
+    assert nv_launch_plan(32, 224, 224, few).form == "two_launch"  # not resident at once
+    with pytest.raises(ValueError, match="does not serve"):
+        nv_launch_plan(32, 224, 224, H100, trunc_u8=False, form="one_pass")
+    with pytest.raises(ValueError, match="self-computed"):
+        nv_launch_plan(32, 224, 224, H100, normalize=False, form="two_launch")
+    with pytest.raises(ValueError, match="form"):
+        nv_launch_plan(32, 224, 224, H100, form="fused")
+    with pytest.raises(ValueError, match="form"):
+        preprocess_fused_nv_batch(torch.zeros((1, 48, 32), dtype=torch.uint8), None, (8, 8),
+                                  form="fused")
+
+
+@pytest.mark.parametrize("n,oh,ow,blocks,fits", [
+    (32, 224, 224, 16, True),
+    (32, 224, 224, 32, True),      # 1024 blocks: 8 an SM by threads
+    (32, 224, 224, 64, False),     # 2048 blocks: more than the card holds at once
+    (1, 224, 224, 1, True),        # one strip of 224 rows: 151 KB of shared memory
+    (1, 1080, 1920, 8, False),     # 3 x 259 KB strips: more than shared memory holds
+    (1, 8, 8, 16, False),          # more blocks than output rows
+])
+def test_one_pass_plan_counts_what_the_card_holds(n, oh, ow, blocks, fits):
+    plan = one_pass_plan(n, oh, ow, H100, blocks)
+    assert (plan is not None) == fits
+    if fits:
+        per_sm = min(2048 // 256, 32, 233472 // (3 * plan.chan + 128 + 1024))
+        assert n * blocks <= 132 * per_sm
+
+
+def test_plan_constants_are_the_kernels():
+    from vacv_tpu_torch.ops.cuda import build
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    src = (build.SRC_DIR / "preprocess.cu").read_text()
+    cases = set(re.findall(r"VACV_ONE_PASS_CASE\((\d), (\d)\)", src))
+    assert {(int(a), int(b)) for a, b in cases} == {(1, 1), (1, 2), (2, 1), (2, 2)}
+    threads = int(re.search(r"constexpr int kOnePassThreads = (\d+);", src).group(1))
+    assert threads == pk._ONE_PASS_THREADS
+    assert "as 4 ints at `limits`" in src and len(NvLimits.__dataclass_fields__) == 4
+    # The plan counts resident blocks without registers: the kernel's launch
+    # bounds hold a thread to the 32 registers of 2048 threads an SM.
+    assert "__launch_bounds__(kOnePassThreads, 2048 / kOnePassThreads) nv_one_pass_kernel" in src
+    static = re.search(r"part\[6\];.*\n.*total\[6\];.*\n.*stat\[6\];", src)
+    assert static and 8 * 6 + 8 * 6 + 4 * 6 <= pk._STATIC_SMEM
+
+
+@pytest.mark.parametrize("is_nv12", [False, True])
+@pytest.mark.parametrize("stats", [(None, None), (MEAN, None), (None, STD)],
+                         ids=["self", "static_mean", "static_stddev"])
+def test_integer_moment_stats_are_the_plain_versions(is_nv12, stats):
+    """The one-pass kernel's μ and σ, from exact integer moments of the
+    truncated planes (numpy, int64), agree with the plain version's f32
+    two-pass statistics within 1e-6 relative, and the output they give
+    with the plain version's and the JAX kernel's."""
+    mean, std = stats
+    nv = nv_batch(8, n=2)
+    raw = port(nv, RECT, OUT, is_nv12=is_nv12, normalize=False)
+    assert np.array_equal(raw, np.floor(raw)) and raw.min() >= 0 and raw.max() <= 255
+    x = raw.astype(np.int64).reshape(2, 3, -1)
+    n = x.shape[-1]
+    sx, sxx = x.sum(-1), (x * x).sum(-1)
+    mu = sx / n
+    sd = np.sqrt((n * sxx - sx * sx).astype(np.float64)) / n
+    planes = torch.from_numpy(raw)
+    plain_mu = planes.mean(dim=(-2, -1))
+    plain_sd = torch.sqrt(torch.square(planes - plain_mu[..., None, None]).mean(dim=(-2, -1)))
+    np.testing.assert_allclose(mu, plain_mu.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(sd, plain_sd.numpy(), rtol=1e-6)
+
+    k_mu, k_inv = one_pass_stats(planes, mean, std)
+    np.testing.assert_allclose(k_mu.numpy(), mu if mean is None else np.broadcast_to(MEAN, mu.shape),
+                               rtol=1e-7)
+    want_sd = sd if std is None else np.broadcast_to(STD, sd.shape)
+    np.testing.assert_allclose(k_inv.numpy(), 1 / (want_sd + 1e-6), rtol=1e-6)
+    twin = ((planes - k_mu[..., None, None]) * k_inv[..., None, None]).numpy()
+    plain = port(nv, RECT, OUT, is_nv12=is_nv12, mean=mean, stddev=std)
+    assert abs(cosine_similarity(twin, plain) - 1) < 1e-6 and np.abs(twin - plain).max() < 1e-4
+    jk = np.asarray(j_fused_nv(nv, vc.VRect(*RECT), OUT, is_nv12=is_nv12, mean=mean, stddev=std,
+                               precise=True))
+    assert_normalized_close(twin, jk)

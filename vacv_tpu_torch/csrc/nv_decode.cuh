@@ -8,21 +8,33 @@
 
 namespace vacv {
 
+// The three adders a chroma pair gives the 2 x 2 Y pixels that share it.
+struct ChromaQ7 {
+  int b, g, r;
+};
+
 // `first` and `second` are the two bytes of the pixel's chroma pair, in
 // memory order: (V, U) for NV21, (U, V) for NV12.  `>>` on a negative int
 // is an arithmetic shift under nvcc, so the adders floor, as C's signed
 // shift does in the reference.
 template <bool IS_NV12>
-__device__ __forceinline__ void decode_q7(int y, int first, int second,
-                                          int& b, int& g, int& r) {
+__device__ __forceinline__ ChromaQ7 chroma_q7(int first, int second) {
   const int u = (IS_NV12 ? first : second) - 128;
   const int v = (IS_NV12 ? second : first) - 128;
-  const int ra = (179 * v) >> 7;
-  const int ga = (44 * u + 91 * v) >> 7;
-  const int ba = (227 * u) >> 7;
-  b = min(max(y + ba, 0), 255);
-  g = min(max(y - ga, 0), 255);
-  r = min(max(y + ra, 0), 255);
+  return {(227 * u) >> 7, (44 * u + 91 * v) >> 7, (179 * v) >> 7};
+}
+
+// One Y value under its pair's adders, clamped to [0, 255].
+__device__ __forceinline__ void apply_q7(int y, const ChromaQ7& c, int& b, int& g, int& r) {
+  b = min(max(y + c.b, 0), 255);
+  g = min(max(y - c.g, 0), 255);
+  r = min(max(y + c.r, 0), 255);
+}
+
+template <bool IS_NV12>
+__device__ __forceinline__ void decode_q7(int y, int first, int second,
+                                          int& b, int& g, int& r) {
+  apply_q7(y, chroma_q7<IS_NV12>(first, second), b, g, r);
 }
 
 }  // namespace vacv

@@ -41,16 +41,46 @@
 // absolute Y row, top + ystart[oy] + ky, and its pair from the absolute
 // column, x & ~1, so any top and left parity is right.
 //
-// Launch 2 (normalize_kernel), only when a statistic is self-computed: one
-// block per (frame, channel) plane, a two-pass mean and population stddev
-// (the stddev around the plane's own mean, also when a static mean is
-// given), then the plane is scaled in place.
+// Launch 2 (normalize_kernel), when a statistic is self-computed and the
+// one-pass form below does not serve the call: one block per (frame,
+// channel) plane, a two-pass mean and population stddev (the stddev around
+// the plane's own mean, also when a static mean is given), then the plane
+// is scaled in place.
+//
+// The NV one-pass form (nv_one_pass_kernel), for truncated output with a
+// self-computed statistic (the camera main path): one launch instead of
+// launch 1 and launch 2, which wrote the f32 planes, read them twice and
+// wrote them again (58 MB at 32 x 224^2, on 96 blocks).  C blocks take a
+// frame; block r owns output rows [r R, r R + R) of all three channels
+// (R = ceil(oh / C); the wrapper's nv_launch_plan picks C), so each tap is
+// decoded once.  The tap code is launch 1's (resample, truncate_u8), and
+// the strip's truncated values stay in shared memory as u8 (3 R ow bytes:
+// 9.4 KB at C = 16, 224 x 224), with exact integer moments per channel:
+// sum x and sum x^2.  Integer sums do not depend on order, so the result
+// has the same bits on every run, and E[x^2] - mu^2 taken as N sum x^2 -
+// (sum x)^2 in 64-bit integers is exact, not a cancellation hazard.  A
+// frame's blocks meet in a cooperative launch: each block's moments go to
+// a slot of a small scratch array, one grid-wide barrier, then each block
+// adds its frame's slots.  (A thread-block cluster a frame, adding the
+// moments through distributed shared memory, holds at most 16 blocks on
+// one GPC, and the card held only 28 clusters of 16 at once.)  Then each
+// block forms mu and sigma from the integers in double (a static mean or
+// stddev, if given, replaces its own), scales its strip from shared memory
+// and stores float4s: the output is written once and never read back.
+//
+// Measured on the H100 (PERF.md), the one-pass form takes about as long as
+// launch 1 and launch 2 together at 32 frames of 224^2 and less at 1, 8 and
+// 128: its taps run slower than launch 1's and its store phase waits for
+// them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_sum.cuh"
 #include "nv_decode.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -58,6 +88,9 @@ constexpr float kNormEps = 1e-6f;
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kNormThreads = 512;
+constexpr int kOnePassThreads = 256;
+constexpr int kMaxDevices = 64;
+constexpr float kTwo23 = 8388608.0f;  // 2^23, bits 0x4B000000
 
 struct Stats {
   float mean[3];
@@ -103,32 +136,24 @@ struct NvSource {
   }
 };
 
+// The runtime top, clamped so that a value out of contract never reads
+// outside the frame.
+__device__ __forceinline__ int crop_top(const int* top_ptr, int top, int h, int ch) {
+  const int t = top_ptr != nullptr ? __ldg(top_ptr) : top;
+  return min(max(t, 0), h - ch);
+}
+
+// The three channels of output pixel (oy, ox) resized from `frame` in f32,
+// in the reference's order: for each horizontal tap the vertical sum, then
+// the horizontal sum.  Source rows start at y0, columns at x0.
 template <class Source, int KY, int KX>
-__global__ void __launch_bounds__(kBlockX * kBlockY) resize_kernel(
-    Source source, float* __restrict__ out, int left, int ch, int top,
-    const int* __restrict__ top_ptr, int oh, int ow,
-    const int* __restrict__ ystart, const float* __restrict__ ywt,
-    const int* __restrict__ xstart, const float* __restrict__ xwt,
-    int trunc_u8, float eps, int static_norm, Stats st) {
-  const int ox = blockIdx.x * kBlockX + threadIdx.x;
-  const int oy = blockIdx.y * kBlockY + threadIdx.y;
-  const int n = blockIdx.z;
-  if (ox >= ow || oy >= oh) return;
-
-  // A runtime top comes from the device; clamp it so that a value out of
-  // contract never reads outside the frame.
-  int t = top_ptr != nullptr ? __ldg(top_ptr) : top;
-  t = min(max(t, 0), source.h - ch);
-
-  const Source frame = source.frame(n);
-  const int y0 = t + __ldg(ystart + oy);
-  const int x0 = left + __ldg(xstart + ox);
-
+__device__ __forceinline__ void resample(const Source& frame, int y0, int x0, int oy, int ox,
+                                         const float* __restrict__ ywt,
+                                         const float* __restrict__ xwt, float acc[3]) {
   float wy[KY];
 #pragma unroll
   for (int ky = 0; ky < KY; ++ky) wy[ky] = __ldg(ywt + oy * KY + ky);
-
-  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f;
+  acc[0] = acc[1] = acc[2] = 0.f;
 #pragma unroll
   for (int kx = 0; kx < KX; ++kx) {
     float v0 = 0.f, v1 = 0.f, v2 = 0.f;
@@ -141,21 +166,167 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) resize_kernel(
       v2 += wy[ky] * c[2];
     }
     const float wx = __ldg(xwt + ox * KX + kx);
-    acc0 += wx * v0;
-    acc1 += wx * v1;
-    acc2 += wx * v2;
+    acc[0] += wx * v0;
+    acc[1] += wx * v1;
+    acc[2] += wx * v2;
   }
+}
+
+// The u8 epilogue clip(floor(x + eps), 0, 255), as a float.
+__device__ __forceinline__ float truncate_u8(float v, float eps) {
+  return fminf(fmaxf(floorf(v + eps), 0.f), 255.f);
+}
+
+template <class Source, int KY, int KX>
+__global__ void __launch_bounds__(kBlockX * kBlockY) resize_kernel(
+    Source source, float* __restrict__ out, int left, int ch, int top,
+    const int* __restrict__ top_ptr, int oh, int ow,
+    const int* __restrict__ ystart, const float* __restrict__ ywt,
+    const int* __restrict__ xstart, const float* __restrict__ xwt,
+    int trunc_u8, float eps, int static_norm, Stats st) {
+  const int ox = blockIdx.x * kBlockX + threadIdx.x;
+  const int oy = blockIdx.y * kBlockY + threadIdx.y;
+  const int n = blockIdx.z;
+  if (ox >= ow || oy >= oh) return;
+
+  const int t = crop_top(top_ptr, top, source.h, ch);
+  const Source frame = source.frame(n);
+  float acc[3];
+  resample<Source, KY, KX>(frame, t + __ldg(ystart + oy), left + __ldg(xstart + ox), oy, ox, ywt,
+                           xwt, acc);
 
   const int64_t plane = static_cast<int64_t>(oh) * ow;
   float* o = out + static_cast<int64_t>(n) * 3 * plane +
              static_cast<int64_t>(oy) * ow + ox;
-  const float acc[3] = {acc0, acc1, acc2};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float v = acc[c];
-    if (trunc_u8) v = fminf(fmaxf(floorf(v + eps), 0.f), 255.f);
+    if (trunc_u8) v = truncate_u8(v, eps);
     if (static_norm) v = (v - st.mean[c]) / (st.std[c] + kNormEps);
     o[c * plane] = v;
+  }
+}
+
+// Byte e (0..3) of w as a float, through the adder: or it into 2^23's
+// mantissa and subtract 2^23.
+__device__ __forceinline__ float byte_to_float(uint32_t w, int e) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + e)) - kTwo23;
+}
+
+// The NV one-pass form (see the top of the file).  grid (C, frames), one
+// cooperative launch; block r of a frame owns output rows
+// [r rows, r rows + rows).  Dynamic shared memory: three channel strips of
+// `chan` bytes (a multiple of 16), channel c's value i at byte shift_c + i,
+// where shift_c is the output's misalignment below a float4 at the strip's
+// start, so that a float4 of output reads one aligned word of the strip.
+// `evict_first` marks the output's lines evict-first in L2 (an output too
+// large to stay there beside the source).  The launch bounds hold a thread
+// to 32 registers, so that registers never keep a block from being
+// resident: the wrapper's plan counts the blocks an SM holds from threads
+// and shared memory alone, and a cooperative launch needs them all.
+template <class Source, int KY, int KX>
+__global__ void __launch_bounds__(kOnePassThreads, 2048 / kOnePassThreads) nv_one_pass_kernel(
+    Source source, float* __restrict__ out, unsigned long long* __restrict__ slots, int left,
+    int ch, int top, const int* __restrict__ top_ptr, int oh, int ow, int rows, int chan,
+    const int* __restrict__ ystart, const float* __restrict__ ywt,
+    const int* __restrict__ xstart, const float* __restrict__ xwt, float eps,
+    int have_mean, int have_std, int evict_first, Stats st) {
+  extern __shared__ __align__(16) uint8_t strip[];
+  __shared__ unsigned long long part[6];   // this block's sum x[3], sum x^2[3]
+  __shared__ unsigned long long total[6];  // the frame's: its blocks' slots added
+  __shared__ float stat[6];                // mu[3], 1 / (sigma + eps)[3]
+  constexpr int THREADS = kOnePassThreads;
+  if (threadIdx.x < 6) part[threadIdx.x] = 0;
+  __syncthreads();  // `part` is zero before any warp adds to it
+  const int csize = static_cast<int>(gridDim.x);
+  const int rank = static_cast<int>(blockIdx.x);
+  const int n = blockIdx.y;
+  const int r0 = min(rank * rows, oh);
+  const int len = (min(r0 + rows, oh) - r0) * ow;
+  const int64_t plane = static_cast<int64_t>(oh) * ow;
+  const int64_t start = static_cast<int64_t>(n) * 3 * plane + static_cast<int64_t>(r0) * ow;
+  int shift[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) shift[c] = static_cast<int>((start + c * plane) & 3);
+
+  const int t = crop_top(top_ptr, top, source.h, ch);
+  const Source frame = source.frame(n);
+  uint32_t s1[3] = {0, 0, 0}, s2[3] = {0, 0, 0};
+  int oy = r0 + static_cast<int>(threadIdx.x) / ow, ox = static_cast<int>(threadIdx.x) % ow;
+  const int dy = THREADS / ow, dx = THREADS % ow;
+  for (int i = threadIdx.x; i < len; i += THREADS) {
+    float acc[3];
+    resample<Source, KY, KX>(frame, t + __ldg(ystart + oy), left + __ldg(xstart + ox), oy, ox, ywt,
+                             xwt, acc);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // An integer in [0, 255]: added to 2^23 it is the low mantissa byte.
+      const uint32_t u = __float_as_uint(truncate_u8(acc[c], eps) + kTwo23) & 0xffu;
+      strip[c * chan + shift[c] + i] = static_cast<uint8_t>(u);
+      s1[c] += u;
+      s2[c] += u * u;
+    }
+    ox += dx, oy += dy;
+    if (ox >= ow) ox -= ow, ++oy;
+  }
+
+  // A warp's sums fit 32 bits (the plan keeps a thread under 2064 pixels:
+  // 32 x 2064 x 255^2 < 2^32); the block's and the frame's take 64.
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const uint32_t v = __reduce_add_sync(0xffffffffu, k < 3 ? s1[k] : s2[k - 3]);
+    if ((threadIdx.x & 31) == 0) atomicAdd(&part[k], static_cast<unsigned long long>(v));
+  }
+  __syncthreads();  // `part` and the strip are complete
+  // Each block's moments to its own slot, then every block of the frame
+  // adds the frame's slots up.
+  unsigned long long* mine = slots + static_cast<int64_t>(n) * csize * 6;
+  if (threadIdx.x < 6) mine[rank * 6 + threadIdx.x] = part[threadIdx.x];
+  __threadfence();
+  cg::this_grid().sync();
+  if (threadIdx.x < 6) {
+    unsigned long long sum = 0;
+    for (int r = 0; r < csize; ++r) sum += __ldcg(mine + r * 6 + threadIdx.x);
+    total[threadIdx.x] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    const int c = threadIdx.x;
+    const unsigned long long sx = total[c], sxx = total[3 + c];
+    const unsigned long long count = static_cast<unsigned long long>(plane);
+    // N^2 var = N sum x^2 - (sum x)^2, exact: the plan keeps a frame under
+    // 2^32 / 255 pixels, so both terms stay below 2^64.
+    const double n_var = static_cast<double>(count * sxx - sx * sx);
+    const double inv_n = 1.0 / static_cast<double>(count);
+    const float mu = have_mean ? st.mean[c] : static_cast<float>(static_cast<double>(sx) * inv_n);
+    const float sd = have_std ? st.std[c] : static_cast<float>(sqrt(n_var) * inv_n);
+    stat[c] = mu;
+    stat[3 + c] = 1.f / (sd + kNormEps);
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float mu = stat[c], inv = stat[3 + c];
+    const int s = shift[c];
+    const uint8_t* held = strip + c * chan;    // held[s + i]: value i
+    float* o = out + (start + c * plane - s);  // 16-byte aligned
+    for (int q = threadIdx.x; 4 * q < s + len; q += THREADS) {
+      const uint32_t word = *reinterpret_cast<const uint32_t*>(held + 4 * q);
+      const int lo = max(s - 4 * q, 0), hi = min(s + len - 4 * q, 4);
+      if (lo == 0 && hi == 4) {
+        const float4 f = make_float4(
+            (byte_to_float(word, 0) - mu) * inv, (byte_to_float(word, 1) - mu) * inv,
+            (byte_to_float(word, 2) - mu) * inv, (byte_to_float(word, 3) - mu) * inv);
+        if (evict_first) {
+          __stcs(reinterpret_cast<float4*>(o + 4 * q), f);
+        } else {
+          *reinterpret_cast<float4*>(o + 4 * q) = f;
+        }
+      } else {
+        for (int e = lo; e < hi; ++e) o[4 * q + e] = (byte_to_float(word, e) - mu) * inv;
+      }
+    }
   }
 }
 
@@ -230,6 +401,77 @@ int launch_resize(int device, void* stream, Source source, void* out, int n,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Opt one one-pass kernel into the largest dynamic shared memory the card
+// allows (once per device); `limit` gets the dynamic bytes a block may hold.
+template <class Source, int KY, int KX>
+int one_pass_smem(int device, int* limit) {
+  static int known[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!known[device]) {
+    auto kernel = nv_one_pass_kernel<Source, KY, KX>;
+    int max_smem = 0;
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               max_smem - static_cast<int>(fa.sharedSizeBytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    known[device] = max_smem - static_cast<int>(fa.sharedSizeBytes);
+  }
+  *limit = known[device];
+  return 0;
+}
+
+// The arguments of a one-pass launch after the source and the output.
+struct OnePassArgs {
+  int left, ch, top;
+  const int* top_ptr;
+  int oh, ow, rows, chan;
+  const int* ystart;
+  const float* ywt;
+  const int* xstart;
+  const float* xwt;
+  float eps;
+  int have_mean, have_std, evict_first;
+  Stats st;
+};
+
+// A cooperative launch: every block resident at once (a grid-wide barrier
+// needs that), or the card refuses it.
+template <class Source, int KY, int KX>
+int launch_one_pass_kernel(int device, cudaStream_t s, Source source, float* out, int n,
+                           int blocks, unsigned long long* slots, const OnePassArgs& a) {
+  int limit = 0;
+  const int rc = one_pass_smem<Source, KY, KX>(device, &limit);
+  if (rc != 0) return rc;
+  const int smem = 3 * a.chan;
+  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {(void*)&source, (void*)&out,       (void*)&slots,  (void*)&a.left,
+                  (void*)&a.ch,   (void*)&a.top,     (void*)&a.top_ptr, (void*)&a.oh,
+                  (void*)&a.ow,   (void*)&a.rows,    (void*)&a.chan, (void*)&a.ystart,
+                  (void*)&a.ywt,  (void*)&a.xstart,  (void*)&a.xwt,  (void*)&a.eps,
+                  (void*)&a.have_mean, (void*)&a.have_std, (void*)&a.evict_first,
+                  (void*)&a.st};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(nv_one_pass_kernel<Source, KY, KX>), dim3(blocks, n),
+      dim3(kOnePassThreads), args, static_cast<size_t>(smem), s));
+}
+
+template <class Source>
+int launch_one_pass(int device, cudaStream_t s, Source source, float* out, int n, int blocks,
+                    int ky, int kx, unsigned long long* slots, const OnePassArgs& a) {
+#define VACV_ONE_PASS_CASE(KY, KX) \
+  if (ky == KY && kx == KX)        \
+    return launch_one_pass_kernel<Source, KY, KX>(device, s, source, out, n, blocks, slots, a);
+  VACV_ONE_PASS_CASE(2, 2)
+  VACV_ONE_PASS_CASE(1, 2)
+  VACV_ONE_PASS_CASE(2, 1)
+  VACV_ONE_PASS_CASE(1, 1)
+#undef VACV_ONE_PASS_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -274,6 +516,63 @@ int vacv_preprocess_nv_resize(int device, void* stream, const void* src,
   return launch_resize<2>(device, stream, NvSource<false>{p, h, w, to_rgb},
                           out, n, left, ch, top, top_ptr, oh, ow, ystart, ywt,
                           ky, xstart, xwt, kx, trunc_u8, eps, static_norm, st);
+}
+
+// What the wrapper's NV launch plan needs of the card and the one-pass
+// kernel, as 4 ints at `limits`: [0] SMs, [1] threads an SM holds, [2] the
+// dynamic shared bytes a one-pass block may hold, [3] the shared bytes an
+// SM holds.  Returns a cudaError_t.
+int vacv_preprocess_nv_limits(int device, void* limits) {
+  int* out = static_cast<int*>(limits);
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxThreadsPerMultiProcessor, device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[3], cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return one_pass_smem<NvSource<false>, 2, 2>(device, &out[2]);
+}
+
+// The NV one-pass form over (n, h * 3 / 2, w) u8 stacked NV buffers (h, w
+// even; linear taps, ky, kx <= 2): truncated output normalized with
+// per-(frame, channel) statistics, a self-computed one where have_mean or
+// have_std is 0 (the given m*, s* otherwise), in one cooperative launch of
+// `blocks` blocks a frame of 256 threads, which the card refuses unless
+// every block is resident.  `slots` is 6 x blocks x n u64 of scratch.
+// Block r owns output rows [r rows, r rows + rows) (blocks * rows >= oh)
+// in 3 * chan bytes of shared memory (chan a multiple of 16, at least
+// rows * ow + 3).  `evict_first`: store the output so.  The rest as
+// vacv_preprocess_nv_resize.  Returns a cudaError_t.
+int vacv_preprocess_nv_one_pass(int device, void* stream, const void* src, void* out, int n,
+                                int h, int w, int is_nv12, int to_rgb, int left, int ch,
+                                int top, const void* top_ptr, int oh, int ow,
+                                const void* ystart, const void* ywt, int ky,
+                                const void* xstart, const void* xwt, int kx, float eps,
+                                int blocks, int rows, int chan, int have_mean, int have_std,
+                                int evict_first, void* slots, float m0, float m1, float m2,
+                                float s0, float s1, float s2) {
+  cudaGetLastError();  // clear a stale error of an earlier call
+  if (blocks < 1 || rows < 1 || static_cast<int64_t>(blocks) * rows < oh || chan % 16 ||
+      static_cast<int64_t>(chan) < static_cast<int64_t>(rows) * ow + 3 || slots == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const OnePassArgs a = {left, ch, top, static_cast<const int*>(top_ptr), oh, ow, rows, chan,
+                         static_cast<const int*>(ystart), static_cast<const float*>(ywt),
+                         static_cast<const int*>(xstart), static_cast<const float*>(xwt), eps,
+                         have_mean, have_std, evict_first, Stats{{m0, m1, m2}, {s0, s1, s2}}};
+  const uint8_t* p = static_cast<const uint8_t*>(src);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  unsigned long long* sl = static_cast<unsigned long long*>(slots);
+  const int rc =
+      is_nv12 ? launch_one_pass(device, s, NvSource<true>{p, h, w, to_rgb}, o, n, blocks, ky, kx,
+                                sl, a)
+              : launch_one_pass(device, s, NvSource<false>{p, h, w, to_rgb}, o, n, blocks, ky,
+                                kx, sl, a);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch 2: normalise `planes` contiguous planes of `plane` floats in

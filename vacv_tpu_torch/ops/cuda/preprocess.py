@@ -25,11 +25,21 @@ The kernel reads resize weights as tap tables: for every output row
 1 (nearest).  ``tap_table`` builds them from the same dense matrices the
 plain versions multiply by, and checks that they reconstruct them
 exactly.
+
+An NV call runs in one of three forms, which ``nv_launch_plan`` picks:
+``"one_pass"`` (truncated output with a self-computed statistic: one
+launch; a frame's blocks keep its truncated planes on the SM as u8 with
+exact integer moments and meet at one barrier), ``"two_launch"`` (the
+resize launch, then the normalize launch: self statistics without
+truncation, or frames too large for the one-pass form) and
+``"resize_only"`` (static statistics or ``normalize=False``: one launch).
+``one_pass_stats`` is the host twin of the one-pass statistics.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -51,7 +61,110 @@ INTERP_MODES = {
     "nearest": InterMode.INTER_NEAREST,
 }
 _TAPS = {"linear": 2, "cubic": 4, "nearest": 1}
-_MAX_FRAMES = 65535  # the kernel's grid z dimension
+_MAX_FRAMES = 65535  # the kernels' grid z (one-pass: y) dimension
+
+
+@dataclass(frozen=True)
+class NvLimits:
+    """What the NV launch plan needs of the card and the one-pass kernel
+    (``vacv_preprocess_nv_limits``)."""
+    sms: int
+    threads_per_sm: int
+    smem_bytes: int     # dynamic shared bytes a one-pass block may hold
+    smem_per_sm: int    # shared bytes an SM holds
+
+
+@dataclass(frozen=True)
+class NvPlan:
+    """One NV call: ``form`` "one_pass" (``blocks`` blocks a frame of 256
+    threads in one cooperative launch, each owning ``rows`` output rows of
+    all three channels in 3 x ``chan`` bytes of shared memory, the output
+    stored evict-first when ``stream``), "two_launch" or "resize_only" (the
+    other fields 0)."""
+    form: str
+    blocks: int = 0
+    rows: int = 0
+    chan: int = 0
+    stream: bool = False
+
+
+NV_FORMS = ("auto", "one_pass", "two_launch")
+_GRID_BLOCKS = (1, 2, 4, 8, 16, 32, 64)  # the blocks a frame the plan considers
+_ONE_PASS_THREADS = 256
+# An f32 output above this is stored evict-first: it cannot stay in the
+# card's L2 (50 MB on an H100) beside its source (as ops/cuda/normalize.py).
+_STREAM_BYTES = 8 << 20
+# Shared bytes the card keeps for each resident block beside its own.
+_SMEM_RESERVE = 1024
+_STATIC_SMEM = 128  # the one-pass kernel's own shared arrays
+_MAX_BLOCKS_PER_SM = 32  # sm_90
+# A one-pass thread's share of its strip, in pixels: a warp's sum of x^2
+# must fit 32 bits (32 x 2064 x 255^2 < 2^32).
+_MAX_PIXELS_A_THREAD = 2064
+# The plan gives a one-pass thread at least this many output pixels where
+# blocks share SMs: a block's fixed work (its moments, the barrier, the
+# statistics) then stays small beside its taps.
+_MIN_PIXELS_A_THREAD = 4
+# A one-pass frame's pixels: N sum x^2 - (sum x)^2 must fit 64 bits.
+_MAX_ONE_PASS_PIXELS = 2**32 // 255 - 1
+
+
+def _strip_bytes(rows: int, ow: int) -> int:
+    """Shared bytes of one channel's strip: its values, three more for the
+    output's misalignment, rounded up to 16."""
+    return -(-(rows * ow + 3) // 16) * 16
+
+
+def one_pass_plan(n: int, oh: int, ow: int, lim: NvLimits, blocks: int) -> NvPlan | None:
+    """The one-pass form of a call over ``n`` frames to (oh, ow) with
+    ``blocks`` blocks a frame, or None where the card cannot run it: a
+    cooperative launch needs every block resident at once, counted from
+    threads, shared memory and the card's 32 blocks an SM (the kernel's
+    launch bounds keep registers out of it)."""
+    rows = -(-oh // blocks)
+    chan = _strip_bytes(rows, ow)
+    per_sm = min(lim.threads_per_sm // _ONE_PASS_THREADS, _MAX_BLOCKS_PER_SM,
+                 lim.smem_per_sm // (3 * chan + _STATIC_SMEM + _SMEM_RESERVE))
+    if not (blocks <= oh and 3 * chan <= lim.smem_bytes and n * blocks <= lim.sms * per_sm
+            and -(-rows * ow // _ONE_PASS_THREADS) <= _MAX_PIXELS_A_THREAD
+            and oh * ow <= _MAX_ONE_PASS_PIXELS and n <= _MAX_FRAMES):
+        return None
+    return NvPlan("one_pass", blocks, rows, chan, n * 3 * oh * ow * 4 > _STREAM_BYTES)
+
+
+@functools.lru_cache(maxsize=256)  # 20 us of Python a call otherwise, on a host-bound path
+def nv_launch_plan(n: int, oh: int, ow: int, lim: NvLimits, *, normalize: bool = True,
+                   self_stats: bool = True, trunc_u8: bool = True,
+                   form: str = "auto") -> NvPlan:
+    """The form and blocks a frame of one NV call over ``n`` frames to
+    (oh, ow): the one place they are decided.
+
+    The one-pass form serves truncated output with a self-computed
+    statistic when every block fits the card at once (``one_pass_plan``).
+    A frame takes the most blocks that keep the n·C blocks at or under half
+    of the card's threads and, where they outnumber the SMs, give each
+    thread at least four output pixels; the fewest the card runs where no
+    count does both.  On an H100 this count was the fastest at 1, 8, 32
+    and 128 frames of 224² (PERF.md).
+    ``form`` "one_pass" or "two_launch" holds a call with self statistics
+    to that form (ValueError where it cannot serve the call)."""
+    if form not in NV_FORMS:
+        raise ValueError(f"NV form must be one of {NV_FORMS}, got {form!r}")
+    if not (normalize and self_stats):
+        if form != "auto":
+            raise ValueError(f"the {form} form needs a self-computed statistic")
+        return NvPlan("resize_only")
+    if form == "two_launch":
+        return NvPlan("two_launch")
+    ok = [p for c in _GRID_BLOCKS if trunc_u8 and (p := one_pass_plan(n, oh, ow, lim, c))]
+    if not ok:
+        if form == "one_pass":
+            raise ValueError(f"the one-pass form does not serve this call ({n} frames to "
+                             f"{oh}x{ow}, trunc_u8={trunc_u8})")
+        return NvPlan("two_launch")
+    good = [p for p in ok if 2 * n * p.blocks * _ONE_PASS_THREADS <= lim.sms * lim.threads_per_sm
+            and (n * p.blocks <= lim.sms or p.rows * ow >= _MIN_PIXELS_A_THREAD * _ONE_PASS_THREADS)]
+    return good[-1] if good else ok[0]
 
 
 def _resize_weights(n_in: int, n_out: int, interp: str) -> np.ndarray:
@@ -231,17 +344,37 @@ def preprocess_fused_nv_batch_torch(
     return _resample(planes, oh, ow, "linear", trunc_u8, normalize, mean, stddev)
 
 
+def one_pass_stats(raw: torch.Tensor, mean=None, stddev=None):
+    """(μ, 1 / (σ + 1e-6)) as f32 (N, 3) tensors, formed as the one-pass
+    kernel forms them from the truncated (N, 3, oh, ow) planes ``raw`` (the
+    ``normalize=False`` output, integer-valued): the integer moments Σx and
+    Σx², μ = Σx · (1/N) and σ = √(N Σx² − (Σx)²) · (1/N) in double, then
+    f32.  A static ``mean`` or ``stddev`` replaces its own, as in the plain
+    version.  The kernel's output is ``(raw − μ) · (1 / (σ + 1e-6))`` in f32,
+    bit for bit."""
+    x = raw.to(torch.int64).flatten(2)
+    count = x.shape[-1]
+    sx, sxx = x.sum(-1), (x * x).sum(-1)
+    inv_n = 1.0 / count
+    mu = (sx.double() * inv_n).float()
+    sd = ((count * sxx - sx * sx).double().sqrt() * inv_n).float()
+    for value, stat in ((_static_stats(mean), mu), (_static_stats(stddev), sd)):
+        if value is not None:
+            stat.copy_(torch.tensor(value, dtype=torch.float32).expand_as(stat))
+    return mu, 1.0 / (sd + np.float32(1e-6))
+
+
 @functools.lru_cache(maxsize=1)
 def _entry_points():
     lib = build.library().lib
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    tail = [
+    geom = [
         i, i, i, p,                  # left, ch, top, top_ptr
         i, i,                        # oh, ow
         p, p, i, p, p, i,            # ystart, ywt, ky, xstart, xwt, kx
-        i, f, i,                     # trunc_u8, eps, static_norm
-        f, f, f, f, f, f,            # mean[3], std[3]
     ]
+    stats = [f, f, f, f, f, f]       # mean[3], std[3]
+    tail = geom + [i, f, i] + stats  # trunc_u8, eps, static_norm
     resize = lib.vacv_preprocess_resize
     resize.restype = i
     resize.argtypes = [i, p, p, p, i, i, i] + tail   # device, stream, src, out, n, h, w
@@ -251,15 +384,32 @@ def _entry_points():
     nv_resize.argtypes = [i, p, p, p, i, i, i, i, i] + tail
     norm = lib.vacv_preprocess_normalize
     norm.restype = i
-    norm.argtypes = [i, p, p, i, ctypes.c_longlong, i, i, f, f, f, f, f, f]
-    return lib, resize, nv_resize, norm
+    norm.argtypes = [i, p, p, i, ctypes.c_longlong, i, i] + stats
+    one_pass = lib.vacv_preprocess_nv_one_pass
+    one_pass.restype = i
+    # device, stream, src, out, n, h, w, is_nv12, to_rgb, geometry, eps, blocks, rows, chan,
+    # have_mean, have_std, evict_first, slots, stats
+    one_pass.argtypes = [i, p, p, p, i, i, i, i, i] + geom + [f, i, i, i, i, i, i, p] + stats
+    limits = lib.vacv_preprocess_nv_limits
+    limits.restype, limits.argtypes = i, [i, p]
+    return lib, resize, nv_resize, norm, one_pass, limits
+
+
+@functools.lru_cache(maxsize=None)
+def nv_limits(device_index: int) -> NvLimits:
+    """The card's and the one-pass kernel's limits, for ``nv_launch_plan``."""
+    lib, *_, limits = _entry_points()
+    out = (ctypes.c_int * 4)()
+    build.check(lib, limits(device_index, ctypes.cast(out, ctypes.c_void_p)), "NV limits")
+    return NvLimits(*out)
 
 
 def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
-            name):
-    """Launch 1 (resize; the NV entry when ``nv`` is an (is_nv12, to_rgb)
-    pair) and, for self statistics, launch 2; count one launch of
-    ``name``."""
+            name, plan=None):
+    """Launch the kernels of one call and count one launch of ``name``:
+    for the NV form ``plan`` "one_pass" the one-pass kernel alone, else
+    launch 1 (resize; the NV entry when ``nv`` is an (is_nv12, to_rgb)
+    pair) and, for self statistics, launch 2."""
     n, h, w, left, top0, cw, ch, oh, ow = geom
     if not batch.is_contiguous():
         raise ValueError("fused preprocess kernel needs a contiguous batch")
@@ -282,15 +432,27 @@ def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
     mean_s, std_s = _static_stats(mean), _static_stats(stddev)
     static_norm = bool(normalize) and mean_s is not None and std_s is not None
     zeros = (0.0, 0.0, 0.0)
-    lib, resize, nv_resize, norm = _entry_points()
-    entry, source_args = (resize, ()) if nv is None else (nv_resize, tuple(map(int, nv)))
+    lib, resize, nv_resize, norm, one_pass, _ = _entry_points()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    taps = (left, ch, top0, top_ptr, oh, ow, ys.data_ptr(), yw.data_ptr(), yw.shape[1],
+            xs.data_ptr(), xw.data_ptr(), xw.shape[1])
+    eps = u8_eps(INTERP_MODES[interp])
+    if plan is not None and plan.form == "one_pass":
+        # each block's moments, 6 x 8 bytes
+        slots = torch.empty(n * plan.blocks * 6, dtype=torch.int64, device=dev)
+        rc = one_pass(
+            dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *map(int, nv), *taps,
+            eps, plan.blocks, plan.rows, plan.chan,
+            int(mean_s is not None), int(std_s is not None), int(plan.stream),
+            slots.data_ptr(), *(mean_s or zeros), *(std_s or zeros),
+        )
+        build.check(lib, rc, f"{name} one-pass kernel")
+        config.record_kernel(name)
+        return out
+    entry, source_args = (resize, ()) if nv is None else (nv_resize, tuple(map(int, nv)))
     rc = entry(
-        dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *source_args,
-        left, ch, top0, top_ptr, oh, ow,
-        ys.data_ptr(), yw.data_ptr(), yw.shape[1],
-        xs.data_ptr(), xw.data_ptr(), xw.shape[1],
-        int(trunc_u8), u8_eps(INTERP_MODES[interp]), int(static_norm),
+        dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *source_args, *taps,
+        int(trunc_u8), eps, int(static_norm),
         *(mean_s if static_norm else zeros), *(std_s if static_norm else zeros),
     )
     build.check(lib, rc, f"{name} resize kernel")
@@ -355,6 +517,7 @@ def preprocess_fused_nv_batch(
     stddev=None,
     normalize=True,
     trunc_u8=True,
+    form="auto",
 ):
     """Fused NV decode → crop → bilinear resize → CHW → f32 → normalize
     over a (N, H·3/2, W) u8 stacked NV batch (Y over interleaved VU:
@@ -364,21 +527,30 @@ def preprocess_fused_nv_batch(
     ``to_rgb``).  ``crop_rect``, ``top``, ``mean``, ``stddev``,
     ``normalize`` and ``trunc_u8`` as in ``preprocess_fused_batch``; the
     resize is the Q11 bilinear one.  Any crop inside the frame is taken.
+    ``form`` holds a call with self statistics to the kernel's "one_pass"
+    or "two_launch" form (``nv_launch_plan``).
 
     A CUDA batch launches the kernel (counted as
     ``"preprocess_fused_nv"``) or raises; a CPU batch runs the plain
     version (counted as ``"preprocess_fused_nv_torch"``).  Raises
     ValueError for inputs the kernel does not take (not u8 rank 3, rows
-    not a multiple of 3, an odd width, a crop outside the frame).
+    not a multiple of 3, an odd width, a crop outside the frame) and for
+    a form that cannot serve the call.
     """
     kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
                   trunc_u8=trunc_u8)
     if batch.device.type == "cuda":
         geom = _nv_geometry(batch, crop_rect, out_size, top)
+        self_stats = _static_stats(mean) is None or _static_stats(stddev) is None
+        plan = nv_launch_plan(geom[0], geom[-2], geom[-1], nv_limits(batch.device.index),
+                              normalize=bool(normalize), self_stats=self_stats,
+                              trunc_u8=bool(trunc_u8), form=form)
         return _launch(batch, geom, (is_nv12, to_rgb), interp="linear",
-                       name="preprocess_fused_nv", **kwargs)
+                       name="preprocess_fused_nv", plan=plan, **kwargs)
     if batch.device.type != "cpu":
         raise ValueError(f"no fused NV preprocess route for device {batch.device}")
+    if form not in NV_FORMS:
+        raise ValueError(f"NV form must be one of {NV_FORMS}, got {form!r}")
     out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, is_nv12=is_nv12,
                                           to_rgb=to_rgb, **kwargs)
     config.record_kernel("preprocess_fused_nv_torch")

@@ -18,7 +18,31 @@ from ... import config
 from ..cvt_color import check_nv_planes, nv_to_bgr_planes_torch
 from . import build
 
-_MAX_ROWS = 65535  # the kernel's grid y dimension
+# A thread takes two Y rows; the grid's y dimension (at most 65535) counts
+# blocks of four row pairs.
+_MAX_ROWS = 2 * 4 * 65535
+VECTOR_WIDTHS = (8, 4)  # bytes a thread, widest first; 2 always works
+# The threads a frame must leave for a width to be taken, measured on an
+# H100 (PERF.md): 8 bytes beat 4 at 1080p (129 600 threads) and tied at
+# 720p (57 600); 4 beat 2 at 352x288 (12 672 threads) and lost at 176x144
+# (3 168).  16 bytes lost to 8 at every size up to 4K and is not built.
+_MIN_THREADS = {8: 96 * 1024, 4: 8 * 1024}
+
+
+def vector_width(h: int, w: int, y_addr: int, y_stride: int, vu_addr: int, vu_stride: int,
+                 out_addr: int = 0) -> int:
+    """The bytes of a row a kernel thread takes: the wider of 8 and 4 that
+    divides the width, both row strides, the plane size ``h * w`` (where
+    the G and R planes start in ``out``) and the three base addresses and
+    leaves at least ``_MIN_THREADS[v]`` threads; else 2, which any planes
+    allow (the width is even and the output is a fresh allocation, and at
+    2 the kernel reads byte by byte).
+    """
+    for v in VECTOR_WIDTHS:
+        if (all(x % v == 0 for x in (w, h * w, y_addr, y_stride, vu_addr, vu_stride, out_addr))
+                and w // v * ((h + 1) // 2) >= _MIN_THREADS[v]):
+            return v
+    return 2
 
 
 @functools.lru_cache(maxsize=1)
@@ -27,8 +51,8 @@ def _entry_points():
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     fn = lib.vacv_yuv2bgr
     fn.restype = i
-    # device, stream, y, y_stride, vu, vu_stride, out, h, w, is_nv12
-    fn.argtypes = [i, p, p, ll, p, ll, p, i, i, i]
+    # device, stream, y, y_stride, vu, vu_stride, out, h, w, is_nv12, vec
+    fn.argtypes = [i, p, p, ll, p, ll, p, i, i, i, i]
     return lib, fn
 
 
@@ -44,12 +68,14 @@ def _launch(y_plane, vu_plane, is_nv12):
     dev = y_plane.device
     out = torch.empty((3, h, w), dtype=torch.uint8, device=dev)
     if h and w:
+        vec = vector_width(h, w, y_plane.data_ptr(), y_plane.stride(0),
+                           vu_plane.data_ptr(), vu_plane.stride(0), out.data_ptr())
         lib, fn = _entry_points()
         rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
                 y_plane.data_ptr(), y_plane.stride(0),
                 vu_plane.data_ptr(), vu_plane.stride(0),
-                out.data_ptr(), h, w, int(is_nv12))
-        build.check(lib, rc, "yuv2bgr kernel")
+                out.data_ptr(), h, w, int(is_nv12), vec)
+        build.check(lib, rc, f"yuv2bgr kernel ({vec} bytes a thread)")
         config.record_kernel("yuv2bgr")
     return out[0], out[1], out[2]
 
