@@ -66,6 +66,18 @@ Phases, each printed as it runs:
    the SLAM front end of ``examples/slam_frontend.py`` (eight 720p frames
    through ``BatchLoader`` and ``to_device``, NV21 by the native host
    library, the NV21 and BGR Preprocessors on numpy input, back on cuda:0);
+   the serving layer (16 numpy 1080p frames through ``stream_map(pre,
+   depth=4)`` and ``StreamExecutor(pre, depth=2)`` with the config-4
+   Preprocessor: in order, bit for bit against ``pre(frame)`` one at a
+   time, one launch a frame, then frames/s at depth 1 and 4 with the
+   copies to the card); the scale-out layer (``make_mesh()``, an NCCL
+   world of one: ``pre.batched(mesh)`` over the config-4 batch bit for
+   bit against ``pre.batch`` in one launch, ``shard_batched_with_stats``
+   over ``pre.fn`` with its all-reduced mean, ``entry()`` on cuda:0 in one
+   launch, ``dryrun_multichip(1)``, host µs a call of ``batched`` against
+   ``batch``); both examples' ``main()`` (``vacv_tpu_torch.examples``: the
+   tracker within 2 px on every frame, the SLAM front end's sharded output
+   bit for bit against ``pre.batch``); the group is destroyed after them;
 6. time: each kernel against its plain version (CUDA-event loop slopes
    of ``utils/perf.device_time``, in turns), its bound (bytes at 3.35
    TB/s or operations at the peak of their type) and one library call for
@@ -1697,6 +1709,201 @@ def phase_frontend(card: str) -> dict:
     return launches
 
 
+def config4_preprocessor():
+    from vacv_tpu_torch.core.types import VRect
+    from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
+
+    return Preprocessor(PreprocessConfig(crop_rect=VRect(LEFT, TOP, LEFT + CW, TOP + CH),
+                                         out_size=(OUT, OUT)), device="cuda")
+
+
+SERVE_FRAMES = 16
+
+
+def phase_serve(card: str) -> int:
+    """The serving layer: 16 numpy 1080p frames through
+    ``stream_map(pre, frames, depth=4)`` (the tap tables' cache emptied
+    first) and ``StreamExecutor(pre, depth=2)`` with the config-4
+    Preprocessor; every output bit for bit against ``pre(frame)`` run one
+    at a time afterwards, in order, one launch a frame; then frames/s at
+    depth 1 and 4 (the frames served four times a run, in turns 1, 4, 4,
+    1), copies to the card included, in CUDA-event time.  Returns the
+    launches counted."""
+    import time
+
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.models import StreamExecutor, stream_map
+
+    from vacv_tpu_torch.ops.cuda.preprocess import _device_taps
+
+    pre = config4_preprocessor()
+    frames = list(np.random.default_rng(70).integers(0, 256, (SERVE_FRAMES, H, W, 3),
+                                                     dtype=np.uint8))
+    _device_taps.cache_clear()  # the first frame fills the tap tables on a side stream
+    config.reset_kernel_counts()
+    mapped = list(stream_map(pre, frames, depth=4))
+    torch.cuda.synchronize()
+    n_map = config.kernel_count("preprocess_fused")
+    config.reset_kernel_counts()
+    ex = StreamExecutor(pre, depth=2)
+    handed = [ex.submit(f) for f in frames]
+    drained = list(ex.drain())
+    torch.cuda.synchronize()
+    n_ex = config.kernel_count("preprocess_fused")
+    plain = config.kernel_count("preprocess_fused_torch")
+    refs = [pre(f) for f in frames]
+    log(f"[serve] preprocess_fused launches: stream_map {n_map}, StreamExecutor {n_ex} "
+        f"for {SERVE_FRAMES} frames each")
+    require(n_map == n_ex == SERVE_FRAMES and plain == 0, f"serve launches {n_map}, {n_ex}")
+    require(handed[0] is None and all(h is not None for h in handed[1:]) and len(drained) == 1,
+            "StreamExecutor(depth=2) did not hand back the oldest result from the second submit")
+    for label, outs in (("stream_map depth 4", mapped),
+                        ("StreamExecutor depth 2", handed[1:] + drained)):
+        require(len(outs) == SERVE_FRAMES, f"{label}: {len(outs)} results")
+        same = [torch.equal(o, r) for o, r in zip(outs, refs)]
+        log(f"[serve] {label}: in order and bit-exact against pre(frame) one at a time: "
+            f"{sum(same)}/{SERVE_FRAMES}")
+        require(all(same), f"{label}: an output differs from pre(frame)")
+
+    def frames_per_s(depth, cycles=4):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        n = sum(1 for _ in stream_map(pre, frames * cycles, depth=depth))
+        end.record()
+        end.synchronize()
+        return n / start.elapsed_time(end) * 1e3, n / (time.perf_counter() - t0)
+
+    runs = {1: [], 4: []}
+    for depth in (1, 4, 4, 1):
+        runs[depth].append(frames_per_s(depth))
+    for depth, r in runs.items():
+        log(f"[time] serve stream_map depth {depth}: {r[0][0]:.1f}, {r[1][0]:.1f} frames/s "
+            f"(CUDA events), {r[0][1]:.1f}, {r[1][1]:.1f} frames/s (host clock); "
+            f"{SERVE_FRAMES} numpy 1080p frames served 4 times a run, copies to the card "
+            f"included [{card}]")
+    return n_map + n_ex
+
+
+def phase_mesh(card: str) -> dict:
+    """The scale-out layer on one card: ``make_mesh()`` (a world of one
+    over NCCL); ``pre.batched(mesh)`` over the config-4 batch equal to
+    ``pre.batch`` bit for bit in one launch; ``shard_batched_with_stats``
+    over ``pre.fn`` equal to the stacked ``pre.fn`` outputs, its
+    all-reduced mean of the frames' channel means within rtol 1e-5;
+    ``entry()`` on cuda:0 in one launch; ``dryrun_multichip(1)``; the
+    host µs a call of ``batched`` against ``batch``.  Returns the
+    launches counted."""
+    import time
+
+    import torch.distributed as dist
+
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.entry import dryrun_multichip, entry
+    from vacv_tpu_torch.parallel import make_mesh, put_sharded, shard_batched_with_stats
+
+    mesh = make_mesh()
+    log(f"[mesh] {mesh}: backend {dist.get_backend()}, world {dist.get_world_size()}")
+    require(mesh.size() == 1 and mesh.device_type == "cuda" and dist.get_backend() == "nccl",
+            "make_mesh() on one card is not an NCCL world of one")
+    pre = config4_preprocessor()
+    batch = make_batch(BATCH, H, W, seed=80)
+    config.reset_kernel_counts()
+    sharded = pre.batched(mesh)(put_sharded(batch, mesh))
+    torch.cuda.synchronize()
+    launches = {"preprocess_fused": config.kernel_count("preprocess_fused")}
+    require(launches["preprocess_fused"] == 1 and config.kernel_count("preprocess_fused_torch") == 0,
+            f"batched launched the fused kernel {launches['preprocess_fused']} times, expected 1")
+    local = sharded.to_local()
+    require(local.device == torch.device("cuda", 0) and torch.equal(local, pre.batch(batch)),
+            "batched(mesh) differs from batch")
+    log(f"[mesh] batched over {BATCH}x{H}x{W}: bit-exact against batch, one launch")
+
+    def per_image(x):
+        return pre.fn(x), x.float().mean(dim=(0, 1))
+
+    config.reset_kernel_counts()
+    outs, stat = shard_batched_with_stats(per_image, mesh)(put_sharded(batch, mesh))
+    torch.cuda.synchronize()
+    launches["normalize_fused"] = config.kernel_count("normalize_fused")
+    require(launches["normalize_fused"] == BATCH, f"pre.fn launched normalize "
+            f"{launches['normalize_fused']} times for {BATCH} frames")
+    want = torch.stack([pre.fn(f) for f in batch])
+    want_mean = batch.double().mean(dim=(1, 2)).mean(dim=0)
+    got_mean = stat.to_local().double()
+    rel = ((got_mean - want_mean).abs() / want_mean.abs()).max().item()
+    log(f"[mesh] shard_batched_with_stats: outputs bit-exact {torch.equal(outs.to_local(), want)}, "
+        f"channel means {got_mean.tolist()} against {want_mean.tolist()} (max rel {rel})")
+    require(torch.equal(outs.to_local(), want), "shard_batched_with_stats outputs differ")
+    require(rel <= 1e-5, "the all-reduced mean is off")
+
+    fn, args = entry()
+    config.reset_kernel_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    n = config.kernel_count("preprocess_fused")
+    require(out.device == torch.device("cuda", 0) and tuple(out.shape) == (8, 3, OUT, OUT)
+            and bool(torch.isfinite(out).all()) and n == 1, f"entry(): {out.device}, {n} launches")
+    launches["preprocess_fused"] += n
+    log(f"[mesh] entry(): {tuple(out.shape)} on {out.device}, one launch")
+    log(f"[mesh] dryrun_multichip(1): batch-mean {dryrun_multichip(1)}")
+
+    dt = put_sharded(batch, mesh)
+    run = pre.batched(mesh)
+
+    def host_us(f, n=50):
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / n * 1e6
+
+    us = [host_us(lambda: pre.batch(batch)), host_us(lambda: run(dt)),
+          host_us(lambda: run(dt)), host_us(lambda: pre.batch(batch))]
+    log(f"[time] host us a call, {BATCH}x{H}x{W}: batched(mesh) {us[1]:.1f}, {us[2]:.1f}; "
+        f"batch {us[0]:.1f}, {us[3]:.1f} [{card}]")
+    return launches
+
+
+def phase_examples(card: str) -> dict:
+    """Both examples' ``main()`` on the card: the tracker within 2 px on
+    every frame (it raises otherwise), one launch of each of its kernels
+    a frame; the SLAM front end's sharded output equal to ``pre.batch``
+    bit for bit.  Returns the launches counted."""
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.examples import camera_tracking, slam_frontend
+
+    config.reset_kernel_counts()
+    results = camera_tracking.main([])
+    torch.cuda.synchronize()
+    names = ("yuv2bgr", "match_corr", "preprocess_fused_nv")
+    launches = {k: config.kernel_count(k) for k in names}
+    log(f"[examples] camera_tracking launches={launches} for {len(results)} frames")
+    require(launches == dict.fromkeys(names, len(results)) and len(results) == 6,
+            f"camera_tracking launches {launches}")
+    require(all(abs(r["found"][0] - r["truth"][0]) <= 2 and abs(r["found"][1] - r["truth"][1]) <= 2
+                for r in results), "camera_tracking lost the target")
+    require(all(r["net_in"].device.type == "cuda" for r in results), "camera_tracking off the card")
+    config.reset_kernel_counts()
+    pre, nv_batch, out = slam_frontend.main([])
+    torch.cuda.synchronize()
+    n = config.kernel_count("preprocess_fused_nv")
+    require(all(config.kernel_count(f"{k}_torch") == 0 for k in names),
+            "an example fell back to a plain version")
+    launches["preprocess_fused_nv"] += n
+    local = out.to_local()
+    log(f"[examples] slam_frontend: {tuple(local.shape)} on {local.device}, "
+        f"{n} preprocess_fused_nv launches (one frame, 2 warm-up and 5 timed batches)")
+    require(n == 8, f"slam_frontend launched the NV kernel {n} times, expected 8")
+    require(local.device == torch.device("cuda", 0) and torch.equal(local, pre.batch(nv_batch)),
+            "slam_frontend's sharded output differs from pre.batch")
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     import vacv_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -1734,6 +1941,13 @@ def main() -> int:
     frontend = phase_frontend(card)
     launches["preprocess_fused"] += frontend["preprocess_fused"]
     launches["preprocess_fused_nv"] += frontend["preprocess_fused_nv"]
+    launches["preprocess_fused"] += phase_serve(card)
+    for phase in (phase_mesh, phase_examples):
+        for k, n in phase(card).items():
+            launches[k] += n
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the NCCL world of one from make_mesh()
     times = {"preprocess_fused": phase_time(card), **phase_time_nv(card),
              **phase_time_warp_corr(card), "probe_dot": probe_times}
     per_call = kernel_times(card)

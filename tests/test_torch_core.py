@@ -181,7 +181,10 @@ def test_import_loads_neither_jax_nor_triton():
         "vacv_tpu_torch.utils.io, vacv_tpu_torch.utils.loader, vacv_tpu_torch.native, "
         "vacv_tpu_torch.ops.imencode, vacv_tpu_torch.ops.cuda.probe, "
         "vacv_tpu_torch.profile, vacv_tpu_torch.profile.runner, "
-        "vacv_tpu_torch.profile.probe_i8; "
+        "vacv_tpu_torch.profile.probe_i8, vacv_tpu_torch.parallel, "
+        "vacv_tpu_torch.parallel.mesh, vacv_tpu_torch.parallel.pipeline, "
+        "vacv_tpu_torch.models.serving, vacv_tpu_torch.entry, vacv_tpu_torch.examples, "
+        "vacv_tpu_torch.examples.camera_tracking, vacv_tpu_torch.examples.slam_frontend; "
         "bad = [m for m in ('jax', 'triton', 'vacv_tpu', 'benchmarks') if m in sys.modules]; "
         "assert not bad, bad"
     )
@@ -298,3 +301,28 @@ def test_facade_has_every_name_of_the_jax_package():
     for n in ("VPoint3", "VAngle", "VEyeInfo", "SimpleSize", "ExtreSize", "IndexValue"):
         assert [f for f in getattr(vt, n).__dataclass_fields__] == [
             f for f in getattr(vc, n).__dataclass_fields__]
+
+
+def test_port_has_the_names_of_the_parallel_and_model_layers():
+    """Every public name of vacv_tpu.parallel and vacv_tpu.models (with the
+    serving layer), the Preprocessor's batch and sharded entry points, and
+    the entry points of __graft_entry__ exist in the port."""
+    import inspect
+
+    import __graft_entry__ as jentry
+    import vacv_tpu.models as jmodels
+    import vacv_tpu.parallel as jparallel
+    import vacv_tpu_torch.entry as tentry
+    import vacv_tpu_torch.models as tmodels
+    import vacv_tpu_torch.parallel as tparallel
+
+    for jmod, tmod in ((jparallel, tparallel), (jmodels, tmodels)):
+        names = [n for n in dir(jmod) if not n.startswith("_")
+                 and not inspect.ismodule(getattr(jmod, n))]
+        assert names
+        missing = [n for n in names if not hasattr(tmod, n)]
+        assert not missing, (jmod.__name__, missing)
+    for name in ("fn", "batch_fn", "batched", "batch", "__call__"):
+        assert hasattr(tmodels.Preprocessor, name), name
+    for name in ("entry", "dryrun_multichip"):
+        assert callable(getattr(jentry, name)) and callable(getattr(tentry, name)), name

@@ -1,1 +1,2 @@
-from .pipeline import PreprocessConfig, Preprocessor
+from .pipeline import PreprocessConfig, Preprocessor, slam_frontend_config
+from .serving import StreamExecutor, stream_map

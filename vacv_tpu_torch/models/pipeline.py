@@ -21,6 +21,7 @@ goes to the ``device`` the Preprocessor was given, by default
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -262,3 +263,45 @@ class Preprocessor:
     def __call__(self, arr):
         """Run the pipeline on one (H, W, C) frame or (H·3/2, W) NV buffer."""
         return self.batch(as_tensor(arr, self.device)[None])[0]
+
+    def fn(self, frame):
+        """The per-image chain of ops on one frame (the JAX package's
+        ``fn``, the function its ``vmap``/``shard_map`` lift): no fused
+        route, whatever the config."""
+        return self._run_chain(as_tensor(frame, self.device), None)
+
+    @functools.cached_property
+    def batch_fn(self):
+        """The (N, ...) batch function: ``batch``, which takes the fused,
+        warp or chain route per call from the batch's shape and device."""
+        return self.batch
+
+    def batched(self, mesh=None):
+        """Sharded batch function: (N, ...) frames with N split over the
+        mesh's data axis (a global batch, or a ``put_sharded`` DTensor).
+        Each rank runs ``batch`` on its local shard, on its own device
+        (not ``self.device``), so it launches the fused kernel once on its
+        shard where the plan allows.  Returns a DTensor sharded on the
+        batch axis."""
+        from ..parallel.mesh import make_mesh
+        from ..parallel.pipeline import as_sharded, local_shard
+
+        if mesh is None:
+            mesh = make_mesh()
+
+        def run(arr, top=None):
+            return as_sharded(self.batch(local_shard(arr, mesh), top=top), mesh)
+
+        return run
+
+
+def slam_frontend_config() -> PreprocessConfig:
+    """BASELINE config 4's flagship chain for a SLAM/SfM keyframe front
+    end: resize to 224×224 → CHW → f32 → normalize.  Add a ``crop_rect``
+    with ``dataclasses.replace`` when the camera ROI is known."""
+    return PreprocessConfig(
+        out_size=(224, 224),
+        interpolation=InterMode.INTER_LINEAR,
+        out_layout=Layout.CHW,
+        normalize=True,
+    )
