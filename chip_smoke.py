@@ -14,7 +14,11 @@ Phases, each printed as it runs:
    ``-Xptxas -v`` lines;
 3. compare: every kernel against its plain PyTorch version on the card,
    at full width: the config-4 fused kernel (32 frames of 1080x1920, the
-   BASELINE config-4 crop, 224x224 out) and odd frames; the NV fused
+   BASELINE config-4 crop, 224x224 out) and odd frames, its moments form
+   at 1, 8, 32 and 128 frames, linear, cubic and nearest,
+   self, partial and static statistics (the normalize=False u8 planes bit
+   for bit, the normalized output bit for bit against the host twin of the
+   integer statistics over them); the NV fused
    kernel (32 stacked NV buffers of 1620x1920, the same crop; NV21, NV12,
    RGB, every stats mode, int and device tops) and odd frames, its
    one-pass form also bit for bit against the host twin of its statistics
@@ -70,7 +74,9 @@ Phases, each printed as it runs:
    depth=4)`` and ``StreamExecutor(pre, depth=2)`` with the config-4
    Preprocessor: in order, bit for bit against ``pre(frame)`` one at a
    time, one launch a frame, then frames/s at depth 1 and 4 with the
-   copies to the card); the scale-out layer (``make_mesh()``, an NCCL
+   copies to the card; and ``stream_map(depth=4)`` over 96 crop and
+   output shapes, three times the tap tables the cache holds, bit for bit
+   against one stream); the scale-out layer (``make_mesh()``, an NCCL
    world of one: ``pre.batched(mesh)`` over the config-4 batch bit for
    bit against ``pre.batch`` in one launch, ``shard_batched_with_stats``
    over ``pre.fn`` with its all-reduced mean, ``entry()`` on cuda:0 in one
@@ -90,6 +96,11 @@ Phases, each printed as it runs:
    kernel, yuv2bgr at 1080p, 720p and 144x176 (warm and with its source out
    of L2) and the fused NV kernel at the camera batch (self and static
    statistics) and the tracking frame (one launch each, asserted), the
+   config-4 kernel's queued device time (``queued_us``) at 32 frames,
+   linear, cubic and nearest, self and static statistics, its
+   self-statistics launches by name (the resize to u8 and the scale, no
+   launch reading the f32 planes back, asserted), the host cost of the
+   cached tables' stream keys against ``record_stream``, the
    normalize kernel's two launch forms and the warp kernel's three paths
    side by side, the path every timed warp case took, yuv2bgr at every
    vector width over five frame sizes, and the NV one-pass form at every
@@ -97,9 +108,13 @@ Phases, each printed as it runs:
    1, 8, 32 and 128 frames.
 
 ``python3 chip_smoke.py --kernel-times`` runs the device and build phases
-and the normalize, warp, config-5, yuv2bgr and fused NV profiler timings
-alone; a copy of this script in an earlier checkout times that tree's
-kernels with the same code.
+and the normalize, warp, config-5, yuv2bgr, fused NV and config-4 timings
+alone, config 4 at 1, 8, 32 and 128 frames; a copy of this script in an earlier checkout times that tree's
+kernels with the same code.  ``python3 chip_smoke.py --parent DIR`` runs
+the whole script and then ``--kernel-times`` in fresh processes, in DIR
+(an unpacked ``git archive`` of an earlier commit, this script copied in)
+and in this checkout, in turns (parent, change, change, parent), and
+prints the two side by side.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -107,6 +122,7 @@ The last three lines are the kernels' JSON record, the card's
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -302,7 +318,64 @@ def phase_compare() -> float:
         compare(f"odd frame {h}x{w} crop {r} normalize=False", small, r, out,
                 "lsb", normalize=False)
     del batch
-    return head
+    return max(head, phase_compare_moments())
+
+
+STATS_MODES = {"self": {}, "static mean, self stddev": dict(mean=STATIC["mean"]),
+               "self mean, static stddev": dict(stddev=STATIC["stddev"]), "static": STATIC}
+
+
+def phase_compare_moments() -> float:
+    """The config-4 kernel's forms at the config-4 crop over 1, 8, 32 and
+    128 frames, linear, cubic and nearest: the ``normalize=False`` u8
+    planes bit for bit against the plain version; with self, partial and
+    static statistics against the plain version (cosine >= 1-1e-6); the
+    self and partial statistics (the moments form) bit for bit against the
+    host twin of its integer statistics over the ``normalize=False``
+    output; at odd frames and outputs too.  Returns the max-abs error against the plain version."""
+    from vacv_tpu_torch.core.types import VRect
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    rect, out = VRect(LEFT, TOP, LEFT + CW, TOP + CH), (OUT, OUT)
+    worst = 0.0
+
+    def twin(label, got, raw, kw):
+        mu, inv = pk.one_pass_stats(raw, kw.get("mean"), kw.get("stddev"))
+        require(torch.equal(got, (raw - mu[..., None, None]) * inv[..., None, None]),
+                f"{label}: not its integer statistics over the normalize=False output")
+
+    for n in (1, 8, BATCH, 128):
+        batch = make_batch(n, H, W, seed=50 + n)
+        for interp in ("linear", "cubic", "nearest"):
+            label = f"config 4 {n}x{H}x{W} {interp}"
+            plan = pk.launch_plan(n, OUT, OUT, pk.card_limits(0), source="bgr")
+            require(plan.form == "moments", f"{label}: plan {plan}")
+            raw = pk.preprocess_fused_batch(batch, rect, out, interp=interp, normalize=False)
+            check(f"{label} normalize=False", raw,
+                  pk.preprocess_fused_batch_torch(batch, rect, out, interp=interp,
+                                                  normalize=False), "exact")
+            for stats, kw in STATS_MODES.items():
+                got = pk.preprocess_fused_batch(batch, rect, out, interp=interp, **kw)
+                want = pk.preprocess_fused_batch_torch(batch, rect, out, interp=interp, **kw)
+                worst = max(worst, check(f"{label} {stats}", got, want, "cos"))
+                if stats != "static":
+                    twin(f"{label} {stats}", got, raw, kw)
+            log(f"[compare] {label}: the moments form bit for bit its integer statistics over "
+                "the normalize=False output")
+        del batch
+    for h, w, r, o in [(144, 176, None, (176, 144)), (214, 284, VRect(10, 6, 270, 202), (99, 37)),
+                       (2, 2, None, (5, 3)), (361, 641, VRect(1, 3, 640, 360), (97, 31))]:
+        small = make_batch(3, h, w, seed=h + w + 5)
+        for interp in ("linear", "cubic", "nearest"):
+            label = f"config 4 odd 3x{h}x{w} crop {r} -> {o} {interp}"
+            raw = pk.preprocess_fused_batch(small, r, o, interp=interp, normalize=False)
+            got = pk.preprocess_fused_batch(small, r, o, interp=interp)
+            worst = max(worst, check(label, got,
+                                     pk.preprocess_fused_batch_torch(small, r, o, interp=interp),
+                                     "cos"))
+            twin(label, got, raw, {})
+    log(f"[compare] config-4 forms: worst max_abs={worst} against the plain version")
+    return worst
 
 
 def phase_compare_nv() -> float:
@@ -355,7 +428,7 @@ def check_one_pass(label, nv, rect, out, **kw) -> float:
     Returns the max-abs error."""
     from vacv_tpu_torch.ops.cuda import preprocess as pk
 
-    plan = pk.nv_launch_plan(nv.shape[0], out[1], out[0], pk.nv_limits(0))
+    plan = pk.launch_plan(nv.shape[0], out[1], out[0], pk.card_limits(0))
     require(plan.form == "one_pass", f"{label}: plan {plan}")
     got = pk.preprocess_fused_nv_batch(nv, rect, out, **kw)
     raw = pk.preprocess_fused_nv_batch(nv, rect, out, normalize=False, **kw)
@@ -951,30 +1024,61 @@ def device_profile(fn, n=20):
     return sum(t for t, _ in kernels.values()), kernels
 
 
+def queued_us(fn, reps=100):
+    """Device µs per call of ``fn()`` with the host out of the way: the
+    stream is held busy (``torch.cuda._sleep``) while the host enqueues
+    ``reps`` calls, then two CUDA events time them back to back, launch
+    gaps included; the median of three runs after a warm-up call.  (The
+    profiler's sum over kernels counts a programmatic dependent launch from
+    when its blocks start waiting.)"""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9 * reps * 150e-6))  # ~150 us of host time a call, at ~2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / reps * 1e3)
+    return sorted(runs)[1]
+
+
 NORMALIZE_KERNELS = ("normalize_", "partials_kernel", "merge_kernel", "scale_kernel")
+CONFIG4_BATCHES = (1, 8, BATCH, 128)
 
 
-def kernel_times(card: str) -> dict:
+kernel_names: dict = {}  # config-4 label -> the kernels the profiler saw
+
+
+def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     """The profiler's device time per call of the normalize kernel at the
     shapes the main paths and the table use, of the warp kernel at BASELINE
     config 5's geometry, of one config-5 batch by kernel, of yuv2bgr at
-    1080p, 720p and 144x176 (warm, and with the source out of L2), and of
-    the fused NV kernel at the camera main path's batch (self and static
-    statistics) and the tracking flow's frame.
+    1080p, 720p and 144x176 (warm, and with the source out of L2), of the
+    fused NV kernel at the camera main path's batch (self and static
+    statistics) and the tracking flow's frame, and the queued device time
+    (``queued_us``) of the config-4 kernel at ``config4_batches`` frames,
+    linear, cubic and nearest, self and static statistics.
 
     ``python3 chip_smoke.py --kernel-times`` runs the device and build
-    phases and this alone.  It calls only ``normalize_fused(x)``,
-    ``warp_planes_batch(...)``, ``Preprocessor.batch``, ``nv_to_bgr`` and
-    ``preprocess_fused_nv_batch`` with arguments that earlier versions of
-    the port take too, so a copy of this script in an earlier checkout of
-    the repo times that tree's kernels with the same code, in the same call
-    on the same card.  Returns {label: (device µs per call, kernel launches per
-    call)}."""
+    phases and this alone, config 4 at 1, 8, 32 and 128 frames.  It calls only ``normalize_fused(x)``,
+    ``warp_planes_batch(...)``, ``Preprocessor.batch``, ``nv_to_bgr``,
+    ``preprocess_fused_nv_batch`` and ``preprocess_fused_batch`` with
+    arguments that earlier versions of the port take too, so a copy of this
+    script in an earlier checkout of the repo times that tree's kernels with
+    the same code, in the same call on the same card.  Returns {label:
+    (device µs per call, kernel launches per call)}; the kernels' names of
+    each config-4 label go to ``kernel_names``."""
     import vacv_tpu_torch as vt
     from vacv_tpu_torch.core.types import VRect
     from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
     from vacv_tpu_torch.ops.cuda.normalize import normalize_fused
-    from vacv_tpu_torch.ops.cuda.preprocess import preprocess_fused_nv_batch
+    from vacv_tpu_torch.ops.cuda.preprocess import (
+        preprocess_fused_batch, preprocess_fused_nv_batch,
+    )
     from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch
     from vacv_tpu_torch.ops.cuda.yuv2bgr import nv_to_bgr
 
@@ -1061,6 +1165,28 @@ def kernel_times(card: str) -> dict:
     top = torch.tensor(200, dtype=torch.int32, device="cuda")
     measure(f"NV21 fused tracking 1x{TRACK_H}x{TRACK_W}, ROI {TRACK_W}x{TRACK_ROI} -> {OUT}, "
             "self stats", lambda: preprocess_fused_nv_batch(one, roi, (OUT, OUT), top=top))
+    del nv
+    # The config-4 kernel at the config-4 crop: queued device time (the
+    # profiler's sum double-counts a dependent launch) and the kernels.
+    for n in config4_batches:
+        batch = make_batch(n, H, W, seed=90 + n)
+        for interp in ("linear", "cubic", "nearest"):
+            for stats, kw in (("self", {}), ("static", STATIC)):
+                label = f"config 4 {n}x{H}x{W} -> {OUT} {interp}, {stats} stats"
+
+                def call():
+                    return preprocess_fused_batch(batch, rect, (OUT, OUT), interp=interp, **kw)
+
+                queued = queued_us(call)
+                total, kernels = device_profile(call, 20)
+                launches = sum(c for _, c in kernels.values())
+                names = ", ".join(f"{(re.findall(r'\w+_kernel', k) or [k[:30]])[0]} {t:.2f} us x{c:g}"
+                                  for k, (t, c) in sorted(kernels.items()))
+                log(f"[time] {label}: {queued:.2f} us queued device time a call; profiler "
+                    f"{total:.2f} us in {launches:g} launches ({names}) [{card}]")
+                out[label] = (queued, launches)
+                kernel_names[label] = sorted(kernels)
+        del batch
     return out
 
 
@@ -1135,7 +1261,7 @@ def time_nv_one_pass_sweep(card: str) -> None:
     cases = [(f"tracking 1x{TRACK_H}x{TRACK_W} ROI {TRACK_W}x{TRACK_ROI} -> {OUT}",
               frames[0][None], VRect(0, 0, TRACK_W, TRACK_ROI), 200)]
     cases += [(f"{n}x{H}x{W} -> {OUT}", make_nv(n, H, W, seed=n), rect, None) for n in (8, 32, 128)]
-    lim = pk.nv_limits(0)
+    lim = pk.card_limits(0)
     for label, batch, rect, top in cases:
         n, times = batch.shape[0], {}
         ref = pk.preprocess_fused_nv_batch(batch, rect, (OUT, OUT), top=top)
@@ -1150,12 +1276,68 @@ def time_nv_one_pass_sweep(card: str) -> None:
         times["two-launch"] = device_profile(
             lambda: pk.preprocess_fused_nv_batch(batch, rect, (OUT, OUT), top=top, form="two_launch"),
             30)[0]
-        auto = pk.nv_launch_plan(n, OUT, OUT, lim)
+        auto = pk.launch_plan(n, OUT, OUT, lim)
         log(f"[time] NV one-pass sweep {label}: "
             + ", ".join(f"{k} {v:.2f} us" for k, v in times.items())
             + f"; the plan takes {auto.blocks} blocks, the fastest is {min(times, key=times.get)} "
             f"({lim}) [{card}]")
         del batch
+
+
+def check_written_once(card: str) -> None:
+    """The config-4 main path with self statistics writes its f32 planes
+    once: its launches are the resize kernel (u8 planes) and the scale
+    kernel, and no launch reads the f32 planes back (no normalize kernel),
+    by the profiler's kernel names at 32 frames."""
+    label = f"config 4 {BATCH}x{H}x{W} -> {OUT} linear, self stats"
+    names = kernel_names[label]
+    log(f"[time] {label}: kernels {[re.findall(r'\w+_kernel', k)[:1] for k in names]}")
+    require(len(names) == 2 and any("moments_resize_kernel" in k for k in names)
+            and any("scale_u8_kernel" in k for k in names)
+            and not any("normalize" in k for k in names),
+            f"{label}: the self-statistics path launches {names}")
+    log("[time] config-4 self statistics: the f32 planes are written once (resize to u8, "
+        "then scale), never read back")
+
+
+def time_table_lookup(card: str) -> None:
+    """What the cached device tables' stream repair costs the host, per
+    fused call (two tables, four tensors): the stream-keyed lookup the port
+    makes against a lookup keyed by shape alone, and against that lookup
+    plus ``record_stream`` on each tensor (the other repair)."""
+    import functools
+    import time
+
+    from vacv_tpu_torch.ops.cuda.preprocess import _device_taps
+
+    dev = torch.device("cuda", 0)
+    unkeyed = functools.lru_cache(maxsize=64)(lambda *a: _device_taps(*a))
+
+    def keyed():
+        _device_taps(CH, OUT, "linear", dev)
+        _device_taps(CW, OUT, "linear", dev)
+
+    def plain():
+        unkeyed(CH, OUT, "linear", dev)
+        unkeyed(CW, OUT, "linear", dev)
+
+    def recorded():
+        stream = torch.cuda.current_stream(dev)
+        for t in (*unkeyed(CH, OUT, "linear", dev), *unkeyed(CW, OUT, "linear", dev)):
+            t.record_stream(stream)
+
+    def host_us(fn, n=20000):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    us = {name: [host_us(fn) for _ in range(2)] for name, fn in
+          (("keyed by stream", keyed), ("keyed by shape", plain),
+           ("keyed by shape + record_stream", recorded))}
+    log("[time] device tables a fused call (host us): "
+        + "; ".join(f"{k} {v[0]:.2f}, {v[1]:.2f}" for k, v in us.items()) + f" [{card}]")
 
 
 def time_yuv2bgr_widths(card: str) -> None:
@@ -1775,6 +1957,7 @@ def phase_serve(card: str) -> int:
         end.synchronize()
         return n / start.elapsed_time(end) * 1e3, n / (time.perf_counter() - t0)
 
+    check_tables_across_streams()
     runs = {1: [], 4: []}
     for depth in (1, 4, 4, 1):
         runs[depth].append(frames_per_s(depth))
@@ -1784,6 +1967,37 @@ def phase_serve(card: str) -> int:
             f"{SERVE_FRAMES} numpy 1080p frames served 4 times a run, copies to the card "
             f"included [{card}]")
     return n_map + n_ex
+
+
+def check_tables_across_streams(frames=96) -> None:
+    """The cached tap tables under serving: ``stream_map(depth=4)`` over 96
+    frames, each with its own crop and output size (192 tap tables, three
+    times what the cache holds, so tables are dropped while other lanes
+    still run), bit for bit against the same calls made one at a time on
+    the default stream afterwards; the cache emptied first."""
+    from vacv_tpu_torch.core.types import VRect
+    from vacv_tpu_torch.models import stream_map
+    from vacv_tpu_torch.ops.cuda.preprocess import _device_taps, preprocess_fused_batch
+
+    batch = make_batch(frames, 360, 640, seed=77)
+    shapes = [(VRect(k % 37, k % 23, k % 37 + 400 + k, k % 23 + 200 + k), (96 + k, 64 + k))
+              for k in range(frames)]
+    order = iter(range(frames))
+
+    def fn(frame):
+        rect, out = shapes[next(order)]
+        return preprocess_fused_batch(frame[None], rect, out)
+
+    _device_taps.cache_clear()
+    mapped = list(stream_map(fn, list(batch), depth=4))
+    torch.cuda.synchronize()
+    info = _device_taps.cache_info()
+    refs = [preprocess_fused_batch(f[None], *shapes[k]) for k, f in enumerate(batch)]
+    same = sum(torch.equal(m, r) for m, r in zip(mapped, refs))
+    log(f"[serve] stream_map depth 4 over {frames} crop/output shapes ({info.misses} tap-table "
+        f"misses, cache of {info.maxsize}): {same}/{frames} bit-exact against one stream")
+    require(info.misses > info.maxsize and same == frames,
+            "tap tables across streams: an output differs")
 
 
 def phase_mesh(card: str) -> dict:
@@ -1904,14 +2118,44 @@ def phase_examples(card: str) -> dict:
     return launches
 
 
+def tree_kernel_times(tree: Path, tag: str) -> dict:
+    """``--kernel-times`` of this script run in a fresh process in ``tree``
+    (this checkout, or one of an earlier commit with this script copied
+    in): {label: [µs, launches]}."""
+    import shutil
+
+    script = Path(__file__).resolve()
+    if script.parent != tree.resolve():
+        shutil.copy(script, tree / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--kernel-times"], cwd=tree,
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines and lines[-1].startswith('{"kernel_times"'),
+            f"the {tag}'s kernel times failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    for line in lines:
+        if line.startswith("[time]"):
+            log(f"[{tag}] {line}")
+    return json.loads(lines[-1])["kernel_times"]
+
+
+def side_by_side(runs, card: str) -> None:
+    """Each kernel-times label: parent, change, change, parent."""
+    log(f"[time] parent / change / change / parent, us a call, each a fresh process (config 4: "
+        f"queued device time; the rest: the profiler's) [{card}]")
+    for label in runs[1]:
+        values = [r.get(label, [None])[0] for r in runs]
+        log(f"[time]   {label}: " + " / ".join("-" if v is None else f"{v:.2f}" for v in values))
+
+
 def main() -> int:
     card = phase_device()
     import vacv_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     phase_build()
     if sys.argv[1:] == ["--kernel-times"]:
-        kernel_times(card)
+        print(json.dumps({"kernel_times": kernel_times(card, CONFIG4_BATCHES)}), flush=True)
         return 0
+    parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     errs = {
         "preprocess_fused": phase_compare(),
         "preprocess_fused_nv": phase_compare_nv(),
@@ -1956,6 +2200,13 @@ def main() -> int:
             require(n_launches == 1, f"{label}: {n_launches} kernel launches per call, expected 1")
     log("[time] normalize, warp, yuv2bgr and the fused NV kernel (self and static statistics): "
         "one kernel launch per call at every timed shape")
+    check_written_once(card)
+    if parent:  # each tree's times in fresh processes, in turns
+        here = Path(__file__).resolve().parent
+        runs = [tree_kernel_times(Path(parent), "parent"), tree_kernel_times(here, "change"),
+                tree_kernel_times(here, "change"), tree_kernel_times(Path(parent), "parent")]
+        side_by_side(runs, card)
+    time_table_lookup(card)
     time_forms_and_paths(card)
     time_yuv2bgr_widths(card)
     time_nv_one_pass_sweep(card)

@@ -99,7 +99,7 @@ def test_launch_counter_rises_once_per_call(cuda):
     batch = batch_on(cuda, n=2, seed=2)
     k0 = config.kernel_count("preprocess_fused")
     p0 = config.kernel_count("preprocess_fused_torch")
-    preprocess_fused_batch(batch, RECT, OUT)                       # two launches
+    preprocess_fused_batch(batch, RECT, OUT)                       # the moments form: two launches
     preprocess_fused_batch(batch, RECT, OUT, normalize=False)      # one launch
     torch.cuda.synchronize()
     assert config.kernel_count("preprocess_fused") == k0 + 2
@@ -124,6 +124,53 @@ def test_wrapper_raises_on_inputs_the_kernel_does_not_take(cuda):
         preprocess_fused_batch(batch, RECT, OUT, top=torch.tensor(1.5, device=cuda))
     assert config.kernel_count("preprocess_fused") == k0
 
+
+# ---- the config-4 moments form ----------------------------------------------
+
+C4_STATS = {"self": {}, "static_mean": dict(mean=(104.0, 117.0, 123.0)),
+            "static_stddev": dict(stddev=(57.1, 57.4, 58.4))}
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic", "nearest"])
+@pytest.mark.parametrize("stats", list(C4_STATS))
+def test_config4_moments_form_is_its_integer_statistics(cuda, interp, stats):
+    """The moments form: the plain version's output (cosine),
+    and bit for bit (raw − μ) · (1 / (σ + 1e-6)) with the host twin's
+    statistics over the ``normalize=False`` output, which is the plain
+    version's bit for bit; the same bits on a second call."""
+    from vacv_tpu_torch.ops.cuda.preprocess import one_pass_stats
+
+    kw = C4_STATS[stats]
+    batch = batch_on(cuda, n=3, seed=20)
+    raw = preprocess_fused_batch(batch, RECT, OUT, interp=interp, normalize=False)
+    assert torch.equal(raw, preprocess_fused_batch_torch(batch, RECT, OUT, interp=interp,
+                                                         normalize=False))
+    got = preprocess_fused_batch(batch, RECT, OUT, interp=interp, **kw)
+    want = preprocess_fused_batch_torch(batch, RECT, OUT, interp=interp, **kw)
+    assert cosine(got, want) >= 1 - 1e-6 and (got - want).abs().max().item() < 0.05
+    mu, inv = one_pass_stats(raw, kw.get("mean"), kw.get("stddev"))
+    assert torch.equal(got, (raw - mu[..., None, None]) * inv[..., None, None])
+    assert torch.equal(got, preprocess_fused_batch(batch, RECT, OUT, interp=interp, **kw))
+
+
+def test_config4_self_stats_write_f32_once(cuda):
+    """Self statistics at the config-4 shape: the resize kernel (u8 planes)
+    and the scale kernel, no normalize kernel reading the f32 planes back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = batch_on(cuda, n=8, h=1080, w=1920, seed=21)
+    rect = VRect(64, 28, 64 + 1792, 28 + 1036)
+    preprocess_fused_batch(batch, rect, (224, 224))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            preprocess_fused_batch(batch, rect, (224, 224))
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sorted(kernels.values()) == [5, 5], kernels
+    assert any("moments_resize_kernel" in k for k in kernels), kernels
+    assert any("scale_u8_kernel" in k for k in kernels), kernels
 
 # ---- the NV camera path ---------------------------------------------------
 
@@ -257,7 +304,7 @@ def assert_one_pass(nv, rect, out, **kw):
     from vacv_tpu_torch.ops.cuda import preprocess as pk
 
     n, oh, ow = nv.shape[0], out[1], out[0]
-    plan = pk.nv_launch_plan(n, oh, ow, pk.nv_limits(0))
+    plan = pk.launch_plan(n, oh, ow, pk.card_limits(0))
     assert plan.form == "one_pass"
     got = preprocess_fused_nv_batch(nv, rect, out, **kw)
     raw = preprocess_fused_nv_batch(nv, rect, out, normalize=False, **kw)
@@ -309,7 +356,7 @@ def test_nv_one_pass_blocks_give_the_same_bits(cuda, blocks):
     from vacv_tpu_torch.ops.cuda import preprocess as pk
 
     nv = nv_on(cuda, n=3, seed=13)
-    plan = pk.one_pass_plan(3, OUT[1], OUT[0], pk.nv_limits(0), blocks)
+    plan = pk.one_pass_plan(3, OUT[1], OUT[0], pk.card_limits(0), blocks)
     assert plan is not None and plan.blocks == blocks
     geom = pk._nv_geometry(nv, NV_RECT, OUT, None)
     got = pk._launch(nv, geom, (False, False), None, None, None, True, True, "linear",

@@ -26,8 +26,8 @@ from vacv_tpu.utils.compare import cosine_similarity
 from vacv_tpu_torch import config
 from vacv_tpu_torch.core.types import VRect
 from vacv_tpu_torch.ops.cuda.preprocess import (
-    NvLimits,
-    nv_launch_plan,
+    CardLimits,
+    launch_plan,
     one_pass_plan,
     one_pass_stats,
     preprocess_fused_nv_batch,
@@ -210,7 +210,7 @@ def test_wrapper_rejects_bad_inputs():
 
 # ---- the one-pass form: its launch plan and its statistics -----------------
 
-H100 = NvLimits(sms=132, threads_per_sm=2048, smem_bytes=232448 - 128, smem_per_sm=233472)
+H100 = CardLimits(sms=132, threads_per_sm=2048, smem_bytes=232448 - 128, smem_per_sm=233472)
 
 
 @pytest.mark.parametrize("n,oh,ow,kw,form,blocks", [
@@ -232,7 +232,7 @@ H100 = NvLimits(sms=132, threads_per_sm=2048, smem_bytes=232448 - 128, smem_per_
     (32, 224, 224, dict(form="two_launch"), "two_launch", 0),
 ])
 def test_nv_launch_plan(n, oh, ow, kw, form, blocks):
-    plan = nv_launch_plan(n, oh, ow, H100, **kw)
+    plan = launch_plan(n, oh, ow, H100, **kw)
     assert (plan.form, plan.blocks) == (form, blocks)
     if form == "one_pass":
         assert plan == one_pass_plan(n, oh, ow, H100, blocks)
@@ -245,18 +245,18 @@ def test_nv_launch_plan(n, oh, ow, kw, form, blocks):
 
 
 def test_nv_launch_plan_follows_the_card_and_the_caller():
-    small = NvLimits(132, 2048, smem_bytes=10_000, smem_per_sm=233472)
-    assert nv_launch_plan(32, 224, 224, small).blocks == 16       # 3 x 3152 bytes
-    assert nv_launch_plan(32, 448, 448, small).form == "two_launch"
-    few = NvLimits(sms=16, threads_per_sm=2048, smem_bytes=232448 - 128, smem_per_sm=233472)
-    assert nv_launch_plan(8, 224, 224, few).blocks == 8           # half of 16 SMs' threads
-    assert nv_launch_plan(32, 224, 224, few).form == "two_launch"  # not resident at once
+    small = CardLimits(132, 2048, smem_bytes=10_000, smem_per_sm=233472)
+    assert launch_plan(32, 224, 224, small).blocks == 16       # 3 x 3152 bytes
+    assert launch_plan(32, 448, 448, small).form == "two_launch"
+    few = CardLimits(sms=16, threads_per_sm=2048, smem_bytes=232448 - 128, smem_per_sm=233472)
+    assert launch_plan(8, 224, 224, few).blocks == 8           # half of 16 SMs' threads
+    assert launch_plan(32, 224, 224, few).form == "two_launch"  # not resident at once
     with pytest.raises(ValueError, match="does not serve"):
-        nv_launch_plan(32, 224, 224, H100, trunc_u8=False, form="one_pass")
+        launch_plan(32, 224, 224, H100, trunc_u8=False, form="one_pass")
     with pytest.raises(ValueError, match="self-computed"):
-        nv_launch_plan(32, 224, 224, H100, normalize=False, form="two_launch")
+        launch_plan(32, 224, 224, H100, normalize=False, form="two_launch")
     with pytest.raises(ValueError, match="form"):
-        nv_launch_plan(32, 224, 224, H100, form="fused")
+        launch_plan(32, 224, 224, H100, form="fused")
     with pytest.raises(ValueError, match="form"):
         preprocess_fused_nv_batch(torch.zeros((1, 48, 32), dtype=torch.uint8), None, (8, 8),
                                   form="fused")
@@ -287,7 +287,7 @@ def test_plan_constants_are_the_kernels():
     assert {(int(a), int(b)) for a, b in cases} == {(1, 1), (1, 2), (2, 1), (2, 2)}
     threads = int(re.search(r"constexpr int kOnePassThreads = (\d+);", src).group(1))
     assert threads == pk._ONE_PASS_THREADS
-    assert "as 4 ints at `limits`" in src and len(NvLimits.__dataclass_fields__) == 4
+    assert "as 4 ints at `limits`" in src and len(CardLimits.__dataclass_fields__) == 4
     # The plan counts resident blocks without registers: the kernel's launch
     # bounds hold a thread to the 32 registers of 2048 threads an SM.
     assert "__launch_bounds__(kOnePassThreads, 2048 / kOnePassThreads) nv_one_pass_kernel" in src

@@ -22,6 +22,11 @@ from vacv_tpu.utils.compare import cosine_similarity
 from vacv_tpu_torch import config
 from vacv_tpu_torch.core.types import VRect
 from vacv_tpu_torch.ops.cuda.preprocess import (
+    CardLimits,
+    Plan,
+    launch_plan,
+    one_pass_plan,
+    one_pass_stats,
     preprocess_fused_batch,
     preprocess_fused_batch_torch,
 )
@@ -183,3 +188,107 @@ def test_wrapper_rejects_bad_inputs():
         preprocess_fused_batch(ok, None, (8, 8), interp="area")
     with pytest.raises(ValueError):
         preprocess_fused_batch(ok.to("meta"), None, (8, 8))
+
+
+# ---- the moments form: its statistics and its launch plan ----
+
+STATS = {"self": {}, "static": dict(mean=MEAN, stddev=STD), "mean_only": dict(mean=MEAN),
+         "stddev_only": dict(stddev=STD)}
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic", "nearest"])
+@pytest.mark.parametrize("stats", list(STATS))
+def test_integer_moment_stats_twin_matches_plain_version(interp, stats):
+    """The host twin of the moments form (``one_pass_stats`` over the
+    ``normalize=False`` output, then (raw − μ) · (1 / (σ + 1e-6)) in f32,
+    which the kernel gives bit for bit) against the plain version's f32
+    statistics: cosine >= 1-1e-6; and μ, σ from the exact integer moments
+    against the plain version's within 1e-6 relative."""
+    kw = STATS[stats]
+    batch = torch.from_numpy(make_batch(10, n=2))
+    rect = VRect(*RECT)
+    raw = preprocess_fused_batch_torch(batch, rect, OUT, interp=interp, normalize=False)
+    assert torch.equal(raw, raw.floor()) and raw.min() >= 0 and raw.max() <= 255
+    mu, inv = one_pass_stats(raw, kw.get("mean"), kw.get("stddev"))
+    twin = ((raw - mu[..., None, None]) * inv[..., None, None]).numpy()
+    plain = preprocess_fused_batch_torch(batch, rect, OUT, interp=interp, **kw).numpy()
+    assert abs(cosine_similarity(twin, plain) - 1) < 1e-6 and np.abs(twin - plain).max() < 1e-4
+    plain_mu = raw.mean(dim=(-2, -1))
+    plain_sd = torch.sqrt(torch.square(raw - plain_mu[..., None, None]).mean(dim=(-2, -1)))
+    want_mu = plain_mu if "mean" not in kw else torch.tensor(MEAN).expand_as(plain_mu)
+    want_sd = plain_sd if "stddev" not in kw else torch.tensor(STD).expand_as(plain_sd)
+    np.testing.assert_allclose(mu.numpy(), want_mu.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(1 / inv.double().numpy() - 1e-6, want_sd.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic", "nearest"])
+@pytest.mark.parametrize("stats", ["self", "mean_only", "stddev_only"])
+def test_stats_modes_match_jax_kernel_interpret(interp, stats):
+    """The plain version (what the moments form is held to on the card)
+    against the JAX kernel in interpret mode, at every interpolation with
+    self and partial statistics, on small seeded frames."""
+    kw = STATS[stats]
+    batch = make_batch(11)
+    want = np.asarray(j_fused(batch, vc.VRect(*RECT), OUT, precise=True, interp=interp, **kw))
+    assert_normalized_close(port(batch, RECT, OUT, interp=interp, **kw), want)
+
+
+H100 = CardLimits(sms=132, threads_per_sm=2048, smem_bytes=232448 - 128, smem_per_sm=233472)
+
+
+@pytest.mark.parametrize("n,scale_blocks", [(1, 49), (8, 44), (32, 11), (128, 2)])
+def test_bgr_plan_takes_the_moments_form(n, scale_blocks):
+    """A BGR call with self statistics and truncation takes the moments
+    form at 1, 8, 32 and 128 frames of 224²: one wave of the card's threads
+    over the scale launch's planes, and no block without a float4."""
+    plan = launch_plan(n, 224, 224, H100, source="bgr")
+    assert plan == Plan("moments", scale_blocks)
+    assert plan.blocks * 3 * n <= 132 * 2048 // 256 or plan.blocks == 1
+    # the NV source keeps the one-pass form, which no BGR call takes
+    nv = launch_plan(n, 224, 224, H100)
+    assert nv == one_pass_plan(n, 224, 224, H100, nv.blocks)
+    with pytest.raises(ValueError, match="does not serve"):
+        launch_plan(n, 224, 224, H100, source="bgr", form="one_pass")
+    assert launch_plan(n, 224, 224, H100, source="bgr", form="two_launch").form == "two_launch"
+
+
+@pytest.mark.parametrize("kw,form", [
+    (dict(trunc_u8=False), "two_launch"),          # untruncated: the f32 planes, then normalize
+    (dict(self_stats=False), "resize_only"),
+    (dict(normalize=False), "resize_only"),
+])
+def test_bgr_plan_other_forms(kw, form):
+    assert launch_plan(32, 224, 224, H100, source="bgr", **kw).form == form
+
+
+def test_bgr_plan_refuses_frames_past_the_integer_moment_limit():
+    """N Σx² − (Σx)² must fit 64 bits: a frame of 2^32 / 255 pixels or more
+    takes neither integer-moment form."""
+    from vacv_tpu_torch.ops.cuda.preprocess import _MAX_ONE_PASS_PIXELS
+
+    side = int(np.sqrt(_MAX_ONE_PASS_PIXELS)) + 1
+    assert side * side > _MAX_ONE_PASS_PIXELS >= (side - 1) ** 2
+    assert launch_plan(1, side - 1, side - 1, H100, source="bgr").form == "moments"
+    assert launch_plan(1, side, side, H100, source="bgr").form == "two_launch"
+    assert launch_plan(1, side, side, H100).form == "two_launch"
+    with pytest.raises(ValueError, match="does not serve"):
+        launch_plan(1, side, side, H100, form="one_pass")
+    with pytest.raises(ValueError, match="form"):
+        launch_plan(32, 224, 224, H100, source="bgr", form="moments")   # not a caller's form
+    with pytest.raises(ValueError, match="source"):
+        launch_plan(32, 224, 224, H100, source="rgb")
+
+
+def test_moments_constants_are_the_kernels():
+    """The wrapper's scale-launch threads and tap cases are the kernels'."""
+    import re
+
+    from vacv_tpu_torch.ops.cuda import build
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    src = (build.SRC_DIR / "preprocess.cu").read_text()
+    assert int(re.search(r"constexpr int kScaleThreads = (\d+);", src).group(1)) == pk._SCALE_THREADS
+    taps = {(a, b) for a in (1, 2, 4) for b in (1, 2, 4)}
+    for case in ("VACV_MOMENTS_CASE", "VACV_RESIZE_CASE"):
+        found = set(re.findall(case + r"\((\d), (\d)\)", src))
+        assert {(int(a), int(b)) for a, b in found} == taps

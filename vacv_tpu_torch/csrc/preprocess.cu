@@ -10,68 +10,88 @@
 // through VMEM and resample with banded bf16 matmuls; the NV one also
 // spreads chroma with lane rolls and repeats chroma rows with a 0/1
 // matmul, all because the TPU has no fast gather.  Here each thread
-// gathers its own taps, and the two kernels are one template that differs
-// only in how a tap is read (the Source policy below).
+// gathers its own taps through L1, and the kernels are templates that
+// differ only in how a tap is read (the Source policy below).
 //
-// Bound: bytes read.  The source is read once and the (N, 3, oh, ow) f32
-// planes are written once (and, with self-computed statistics, read and
-// rewritten once more by the second launch).  There are a few dozen flops
+// Bound: bytes.  The source rows that carry a tap are read once and the
+// (N, 3, oh, ow) f32 planes are written once.  There are a few dozen flops
 // per output pixel, far below what the card could do with the bytes it
-// moves.
+// moves.  Only the source rows that carry a nonzero tap are read: at 1080p
+// -> 224 the taps touch 448 of the 1036 crop rows, and in those rows the
+// 32-byte sectors of nearly every column.  An NV tap reads one Y byte and
+// one chroma pair, shared by 2 x 2 Y pixels, so the chroma rows the tapped
+// Y rows map to are read once through L1/L2.
 //
-// What the design does about it: it reads only the source rows and columns
-// that carry a nonzero tap.  At 1080p -> 224 the taps touch 448 of the 1036
-// crop rows, and in those rows the 32-byte sectors of nearly every column,
-// so about 43% of the crop's bytes.  An NV frame is 1.5 bytes a pixel
-// against BGR's 3: a tap reads one Y byte and one chroma pair, and the
-// pair is shared by 2 x 2 Y pixels, so the chroma rows the tapped Y rows
-// map to are read once through L1/L2.  A whole block of outputs shares the
-// rows it reads through L1/L2.  Nothing is staged in shared memory yet:
-// this first version is simple and right; making it fast is later work.
+// Every form computes in f32 in the reference's order: for each horizontal
+// tap the vertical sum, then the horizontal sum; then the u8 epilogue
+// clip(floor(x + eps), 0, 255); then (x - mean) / (std + 1e-6).  The host
+// turns each dense resize weight matrix into a tap table: for every output
+// row (column) a start index and K weights (K = 2 linear, 4 cubic, 1
+// nearest; the NV form is linear only, as in the JAX package).
 //
-// Launch 1 (resize_kernel): one thread per output pixel (n, oy, ox), all
-// three channels.  The host turns each dense resize weight matrix into a
-// tap table: for every output row (column) a start index and K weights
-// (K = 2 linear, 4 cubic, 1 nearest; the NV form is linear only, as in the
-// JAX package).  The thread computes in f32 in the reference's order: for
-// each horizontal tap the vertical sum, then the horizontal sum; then the
-// u8 epilogue clip(floor(x + eps), 0, 255); then, with static statistics,
-// (x - mean) / (std + 1e-6).  An NV tap is decoded on the fly with the
-// bit-exact Q7 math (nv_decode.cuh); its chroma row comes from the
-// absolute Y row, top + ystart[oy] + ky, and its pair from the absolute
-// column, x & ~1, so any top and left parity is right.
+// Launch 1 (resize_kernel, either source): one thread per output pixel,
+// all three channels, 32 x 8 pixels a block, each tap's bytes gathered
+// through L1 (resample below); f32 out (static statistics, normalize=False,
+// or before the normalize launch for untruncated self statistics).  An NV
+// tap is decoded on the fly with the bit-exact Q7 math (nv_decode.cuh); its
+// chroma row comes from the absolute Y row, top + ystart[oy] + ky, and its
+// pair from the absolute column, x & ~1, so any top and left parity is
+// right.  Staging each block's or each warp's BGR tap rows in shared memory
+// with 16-byte cp.async measured slower at every batch and interpolation
+// on the H100 (it cut the resident warps to what shared memory holds, and a
+// warp waited for all its rows before its first tap), and so did reading
+// the BGR taps as words for f32 output at 8 frames linear and nearest and
+// at 128 cubic (PERF.md).
 //
-// Launch 2 (normalize_kernel), when a statistic is self-computed and the
-// one-pass form below does not serve the call: one block per (frame,
-// channel) plane, a two-pass mean and population stddev (the stddev around
-// the plane's own mean, also when a static mean is given), then the plane
-// is scaled in place.
+// The moments form (BGR, truncated output, self-computed statistics: the
+// config-4 main path).  Launch 1 (moments_resize_kernel) stores the
+// truncated planes as u8 (4.8 MB at 32 x 224^2 against 19.3 MB of f32) and
+// each block's exact integer moments per channel, sum x and sum x^2, in a
+// slot of its own: a warp reduce, then one barrier.  It reads a tap row's
+// 3 KX bytes as the aligned 4-byte words that hold them (2 to 4 words,
+// through L1), funnel-shifted into place and turned into floats on the
+// adder: 6 loads a linear pixel and 16 a cubic one, where three byte loads
+// a tap take 12 and 48.  Launch 2 (scale_u8_kernel) adds a frame's
+// slots, forms mu and sigma from the integers in double, reads the u8
+// planes as 4-byte words and stores float4s (evict-first stores measured
+// no faster at 32 and 128 frames).  The f32 planes are written once and
+// never read back.  Integer sums do not
+// depend on order, so the result has the same bits on every run, and
+// N sum x^2 - (sum x)^2 in 64-bit integers is exact, not a cancellation
+// hazard.  Launch 2 is a programmatic dependent launch: its blocks may take
+// the SMs launch 1's last wave frees, issue their loads of the slots and
+// of their first u8 words as soon as launch 1's memory is complete
+// (griddepcontrol.wait), and form the statistics while those words arrive.
+// (Splitting the frames into chunks, each chunk's launch 2 beside the next
+// chunk's launch 1, measured no faster at 8, 32 and 128 frames.)
 //
-// The NV one-pass form (nv_one_pass_kernel), for truncated output with a
-// self-computed statistic (the camera main path): one launch instead of
-// launch 1 and launch 2, which wrote the f32 planes, read them twice and
-// wrote them again (58 MB at 32 x 224^2, on 96 blocks).  C blocks take a
-// frame; block r owns output rows [r R, r R + R) of all three channels
-// (R = ceil(oh / C); the wrapper's nv_launch_plan picks C), so each tap is
-// decoded once.  The tap code is launch 1's (resample, truncate_u8), and
-// the strip's truncated values stay in shared memory as u8 (3 R ow bytes:
-// 9.4 KB at C = 16, 224 x 224), with exact integer moments per channel:
-// sum x and sum x^2.  Integer sums do not depend on order, so the result
-// has the same bits on every run, and E[x^2] - mu^2 taken as N sum x^2 -
-// (sum x)^2 in 64-bit integers is exact, not a cancellation hazard.  A
-// frame's blocks meet in a cooperative launch: each block's moments go to
-// a slot of a small scratch array, one grid-wide barrier, then each block
-// adds its frame's slots.  (A thread-block cluster a frame, adding the
-// moments through distributed shared memory, holds at most 16 blocks on
-// one GPC, and the card held only 28 clusters of 16 at once.)  Then each
-// block forms mu and sigma from the integers in double (a static mean or
-// stddev, if given, replaces its own), scales its strip from shared memory
-// and stores float4s: the output is written once and never read back.
+// The two-launch form (resize_kernel, then normalize_kernel), where a
+// statistic is self-computed and neither the moments nor the NV one-pass
+// form serves the call: launch 1, then one block per (frame, channel) plane, a
+// two-pass mean and population stddev (the stddev around the plane's own
+// mean, also when a static mean is given), then the plane is scaled in
+// place.
 //
-// Measured on the H100 (PERF.md), the one-pass form takes about as long as
-// launch 1 and launch 2 together at 32 frames of 224^2 and less at 1, 8 and
-// 128: its taps run slower than launch 1's and its store phase waits for
-// them.
+// The NV one-pass form (nv_one_pass_kernel), for truncated NV output with
+// a self-computed statistic (the camera main path): one launch.  C
+// blocks take a frame; block r owns output rows [r R, r R + R) of all three
+// channels (R = ceil(oh / C); the wrapper's launch_plan picks C), so each
+// tap is read once.  The strip's truncated values stay in shared memory as
+// u8 (3 R ow bytes: 9.4 KB at C = 16, 224 x 224), with the integer moments
+// above.  A frame's blocks meet in a cooperative launch: each block's
+// moments go to a slot of a small scratch array, one grid-wide barrier,
+// then each block adds its frame's slots.  (A thread-block cluster a frame,
+// adding the moments through distributed shared memory, holds at most 16
+// blocks on one GPC, and the card held only 28 clusters of 16 at once.)
+// Then each block forms mu and sigma as above, scales its strip from
+// shared memory and stores float4s.
+//
+// Measured on the H100 (PERF.md): the NV one-pass form takes about as long
+// as launch 1 and launch 2 together at 32 frames of 224^2 and less at 1, 8
+// and 128.  Built for BGR, it was slower than the moments form in 9 of 12
+// cells of 1, 8, 32 and 128 frames x 3 interpolations (1.6 to 2.5x at
+// cubic) and faster by 2 to 9% in three (8 frames linear and nearest, 128
+// nearest), so BGR keeps the moments form alone.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -89,6 +109,8 @@ constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kNormThreads = 512;
 constexpr int kOnePassThreads = 256;
+constexpr int kScaleThreads = 256;
+constexpr int kScaleHeld = 8;  // words a scale thread loads before its statistics
 constexpr int kMaxDevices = 64;
 constexpr float kTwo23 = 8388608.0f;  // 2^23, bits 0x4B000000
 
@@ -211,6 +233,180 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) resize_kernel(
 // mantissa and subtract 2^23.
 __device__ __forceinline__ float byte_to_float(uint32_t w, int e) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + e)) - kTwo23;
+}
+
+// Bytes [b, b + 3 KX) of source row `row`, KX taps of three channels, as
+// floats: the aligned 4-byte words that hold them read through L1 (only
+// those: an aligned word never crosses a page), funnel-shifted so that the
+// stream starts at byte b, each byte turned into a float on the adder.
+template <int KX>
+__device__ __forceinline__ void load_taps(const uint8_t* row, int64_t b, float c[KX][3]) {
+  constexpr int M = (3 * KX + 6) / 4;  // words that hold 3 KX bytes at any offset
+  const uint8_t* first = row + b;
+  const int s = static_cast<int>(reinterpret_cast<uintptr_t>(first) & 3);
+  const uint32_t* wp = reinterpret_cast<const uint32_t*>(first - s);
+  uint32_t w[M + 1];
+#pragma unroll
+  for (int i = 0; i < M; ++i) w[i] = 4 * i < s + 3 * KX ? __ldg(wp + i) : 0u;
+  w[M] = 0u;
+  uint32_t u[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) u[i] = __funnelshift_r(w[i], w[i + 1], 8 * s);
+#pragma unroll
+  for (int kx = 0; kx < KX; ++kx)
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) c[kx][ch] = byte_to_float(u[(3 * kx + ch) >> 2], (3 * kx + ch) & 3);
+}
+
+// The moments form's launch 1 (see the top of the file).  Blocks of 32 x 8
+// threads, a thread an output pixel (ox, oy) of frame blockIdx.z, all three
+// channels, its taps read as words (load_taps): the truncated values as u8
+// planes shaped as the output into `planes`, and the block's moments sum
+// x[3], sum x^2[3] at slots[(frame parts + blockIdx.y gridDim.x +
+// blockIdx.x) 6], parts = gridDim.x gridDim.y.
+template <int KY, int KX>
+__global__ void __launch_bounds__(kBlockX * kBlockY) moments_resize_kernel(
+    BgrSource source, uint8_t* __restrict__ planes, unsigned long long* __restrict__ slots,
+    int left, int ch, int top, const int* __restrict__ top_ptr, int oh, int ow,
+    const int* __restrict__ ystart, const float* __restrict__ ywt,
+    const int* __restrict__ xstart, const float* __restrict__ xwt, float eps) {
+  // Each warp's sum x[3], sum x^2[3] (the block's are below 2^32: 256 pixels).
+  __shared__ uint32_t part[kBlockY][6];
+  // The scale launch, a programmatic dependent launch, may be scheduled once
+  // every block of this grid has started; it waits for our memory.
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  const int ox = blockIdx.x * kBlockX + threadIdx.x;
+  const int oy = blockIdx.y * kBlockY + threadIdx.y;
+  const int n = blockIdx.z;
+  uint32_t u[3] = {0, 0, 0};
+  if (ox < ow && oy < oh) {
+    const int t = crop_top(top_ptr, top, source.h, ch);
+    const int64_t pitch = static_cast<int64_t>(source.w) * 3;
+    const uint8_t* row = source.frame(n).p + (t + __ldg(ystart + oy)) * pitch;
+    const int64_t bx = 3 * static_cast<int64_t>(left + __ldg(xstart + ox));
+    // The order of resample(): for each horizontal tap the vertical sum,
+    // each sum taken over ky in order.
+    float v[KX][3];
+#pragma unroll
+    for (int ky = 0; ky < KY; ++ky) {
+      float c[KX][3];
+      load_taps<KX>(row + ky * pitch, bx, c);
+      const float wy = __ldg(ywt + oy * KY + ky);
+#pragma unroll
+      for (int kx = 0; kx < KX; ++kx)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          if (ky == 0) v[kx][k] = 0.f;
+          v[kx][k] += wy * c[kx][k];
+        }
+    }
+    float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kx = 0; kx < KX; ++kx) {
+      const float wx = __ldg(xwt + ox * KX + kx);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc[k] += wx * v[kx][k];
+    }
+    const int64_t plane = static_cast<int64_t>(oh) * ow;
+    const int64_t o = static_cast<int64_t>(n) * 3 * plane + static_cast<int64_t>(oy) * ow + ox;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      // An integer in [0, 255]: added to 2^23 it is the low mantissa byte.
+      u[k] = __float_as_uint(truncate_u8(acc[k], eps) + kTwo23) & 0xffu;
+      planes[o + k * plane] = static_cast<uint8_t>(u[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const uint32_t v = __reduce_add_sync(0xffffffffu, k < 3 ? u[k] : u[k - 3] * u[k - 3]);
+    if (threadIdx.x == k) part[threadIdx.y][k] = v;  // a warp is a row of the block
+  }
+  __syncthreads();
+  if (tid < 6) {
+    uint32_t sum = 0;
+#pragma unroll
+    for (int r = 0; r < kBlockY; ++r) sum += part[r][tid];
+    const int64_t parts = static_cast<int64_t>(gridDim.x) * gridDim.y;
+    slots[(n * parts + blockIdx.y * gridDim.x + blockIdx.x) * 6 + tid] = sum;
+  }
+}
+
+// The moments form's launch 2 (see the top of the file).  grid (blocks,
+// frames x 3); block b of plane p = 3 n + c adds frame n's `parts` slots of
+// channel c, then scales its share of the plane's u8 values into `out`:
+// (x - mu) * (1 / (sigma + eps)) in f32, as float4s from 4-byte words when
+// the plane is a multiple of 4 values (each plane then starts 16-byte
+// aligned), else one value at a time.
+__global__ void __launch_bounds__(kScaleThreads) scale_u8_kernel(
+    const uint8_t* __restrict__ in, float* __restrict__ out,
+    const unsigned long long* __restrict__ slots, int parts, int64_t plane, int have_mean,
+    int have_std, Stats st) {
+  __shared__ unsigned long long part[2][kScaleThreads / 32];  // each warp's sum x, sum x^2
+  __shared__ float stat[2];                                     // mu, 1 / (sigma + eps)
+  const int p = blockIdx.y, n = p / 3, c = p % 3;
+  const uint8_t* src = in + static_cast<int64_t>(p) * plane;
+  float* dst = out + static_cast<int64_t>(p) * plane;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kScaleThreads + threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kScaleThreads;
+  const bool quads = (plane & 3) == 0;
+  const unsigned* words = reinterpret_cast<const unsigned*>(src);
+  // Launch 1 may still run: wait until its memory is complete and visible.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  uint32_t held[kScaleHeld];  // this thread's first words, loaded before the statistics
+#pragma unroll
+  for (int k = 0; k < kScaleHeld; ++k) {
+    const int64_t q = first + k * step;
+    held[k] = quads && q < plane / 4 ? __ldcg(words + q) : 0u;
+  }
+  {
+    // The frame's slots of channel c, all loads in flight at once.
+    const unsigned long long* mine = slots + static_cast<int64_t>(n) * parts * 6;
+    unsigned long long sx = 0, sxx = 0;
+    for (int b = threadIdx.x; b < parts; b += kScaleThreads) {
+      sx += __ldcg(mine + b * 6 + c);
+      sxx += __ldcg(mine + b * 6 + 3 + c);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sx += __shfl_xor_sync(0xffffffffu, sx, o);
+      sxx += __shfl_xor_sync(0xffffffffu, sxx, o);
+    }
+    if ((threadIdx.x & 31) == 0) part[0][threadIdx.x >> 5] = sx, part[1][threadIdx.x >> 5] = sxx;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sx = 0, sxx = 0;
+#pragma unroll
+    for (int w = 0; w < kScaleThreads / 32; ++w) sx += part[0][w], sxx += part[1][w];
+    // N^2 var = N sum x^2 - (sum x)^2, exact: the plan keeps a frame under
+    // 2^32 / 255 pixels, so both terms stay below 2^64.  The NV one-pass
+    // kernel forms its statistics the same way; ops/cuda/preprocess.py's
+    // one_pass_stats is the host twin of both.
+    const unsigned long long count = static_cast<unsigned long long>(plane);
+    const double n_var = static_cast<double>(count * sxx - sx * sx);
+    const double inv_n = 1.0 / static_cast<double>(count);
+    stat[0] = have_mean ? st.mean[c] : static_cast<float>(static_cast<double>(sx) * inv_n);
+    const float sd = have_std ? st.std[c] : static_cast<float>(sqrt(n_var) * inv_n);
+    stat[1] = 1.f / (sd + kNormEps);
+  }
+  __syncthreads();
+  const float mu = stat[0], inv = stat[1];
+  if (quads) {
+    float4* out4 = reinterpret_cast<float4*>(dst);
+    auto put = [&](int64_t q, uint32_t word) {
+      out4[q] = make_float4(
+          (byte_to_float(word, 0) - mu) * inv, (byte_to_float(word, 1) - mu) * inv,
+          (byte_to_float(word, 2) - mu) * inv, (byte_to_float(word, 3) - mu) * inv);
+    };
+#pragma unroll
+    for (int k = 0; k < kScaleHeld; ++k)
+      if (first + k * step < plane / 4) put(first + k * step, held[k]);
+    for (int64_t q = first + kScaleHeld * step; q < plane / 4; q += step) put(q, __ldcg(words + q));
+  } else {
+    for (int64_t i = first; i < plane; i += step)
+      dst[i] = (static_cast<float>(__ldcg(src + i)) - mu) * inv;
+  }
 }
 
 // The NV one-pass form (see the top of the file).  grid (C, frames), one
@@ -493,6 +689,69 @@ int vacv_preprocess_resize(int device, void* stream, const void* src,
                           Stats{{m0, m1, m2}, {s0, s1, s2}});
 }
 
+// The moments form over (n, h, w, 3) u8 BGR frames: the resize launch
+// (moments_resize_kernel: u8 planes into `planes`, (n, 3, oh, ow) u8, and its
+// blocks' moments into `slots`, ceil(ow / 32) x ceil(oh / 8) x 6 u64 a
+// frame), then the scale launch (scale_u8_kernel, a programmatic dependent
+// launch: `blocks` blocks a plane scale the planes into `out`, (n, 3, oh,
+// ow) f32, with per-(frame, channel) statistics, a self-computed one where
+// have_mean or have_std is 0, the given m*, s* otherwise).  The rest as
+// vacv_preprocess_resize.  Returns a cudaError_t.
+int vacv_preprocess_moments(int device, void* stream, const void* src, void* out, void* planes,
+                            void* slots, int n, int h, int w, int left, int ch, int top,
+                            const void* top_ptr, int oh, int ow, const void* ystart,
+                            const void* ywt, int ky, const void* xstart, const void* xwt, int kx,
+                            float eps, int blocks, int have_mean, int have_std, float m0,
+                            float m1, float m2, float s0, float s1, float s2) {
+  cudaGetLastError();  // clear a stale error of an earlier call
+  if (n < 1 || blocks < 1 || n > 65535 / 3 || planes == nullptr || slots == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t plane = static_cast<int64_t>(oh) * ow;
+  const int parts = ((ow + kBlockX - 1) / kBlockX) * ((oh + kBlockY - 1) / kBlockY);
+  const Stats st = {{m0, m1, m2}, {s0, s1, s2}};
+  const BgrSource source = {static_cast<const uint8_t*>(src), h, w};
+  uint8_t* p8 = static_cast<uint8_t*>(planes);
+  unsigned long long* sl = static_cast<unsigned long long*>(slots);
+  const dim3 grid((ow + kBlockX - 1) / kBlockX, (oh + kBlockY - 1) / kBlockY, n);
+  const dim3 block(kBlockX, kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = cudaErrorInvalidValue;
+#define VACV_MOMENTS_CASE(KY, KX)                                                                \
+  if (ky == KY && kx == KX) {                                                                    \
+    moments_resize_kernel<KY, KX><<<grid, block, 0, s>>>(                                        \
+        source, p8, sl, left, ch, top, static_cast<const int*>(top_ptr), oh, ow,                 \
+        static_cast<const int*>(ystart), static_cast<const float*>(ywt),                         \
+        static_cast<const int*>(xstart), static_cast<const float*>(xwt), eps);                   \
+    e = cudaGetLastError();                                                                      \
+  }
+  VACV_MOMENTS_CASE(2, 2)
+  VACV_MOMENTS_CASE(4, 4)
+  VACV_MOMENTS_CASE(1, 1)
+  VACV_MOMENTS_CASE(1, 2)
+  VACV_MOMENTS_CASE(2, 1)
+  VACV_MOMENTS_CASE(1, 4)
+  VACV_MOMENTS_CASE(4, 1)
+  VACV_MOMENTS_CASE(2, 4)
+  VACV_MOMENTS_CASE(4, 2)
+#undef VACV_MOMENTS_CASE
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 3 * n);
+  cfg.blockDim = dim3(kScaleThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, scale_u8_kernel, static_cast<const uint8_t*>(p8),
+                                             static_cast<float*>(out),
+                                             static_cast<const unsigned long long*>(sl), parts,
+                                             plane, have_mean, have_std, st));
+}
+
 // Launch 1 over (n, h * 3 / 2, w) u8 stacked NV buffers; h is the Y
 // height, and h and w are even.  Linear taps only (ky, kx <= 2).  The rest
 // as vacv_preprocess_resize.
@@ -518,11 +777,11 @@ int vacv_preprocess_nv_resize(int device, void* stream, const void* src,
                           ky, xstart, xwt, kx, trunc_u8, eps, static_norm, st);
 }
 
-// What the wrapper's NV launch plan needs of the card and the one-pass
+// What the wrapper's launch plan needs of the card and the NV one-pass
 // kernel, as 4 ints at `limits`: [0] SMs, [1] threads an SM holds, [2] the
 // dynamic shared bytes a one-pass block may hold, [3] the shared bytes an
 // SM holds.  Returns a cudaError_t.
-int vacv_preprocess_nv_limits(int device, void* limits) {
+int vacv_preprocess_limits(int device, void* limits) {
   int* out = static_cast<int*>(limits);
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, device);

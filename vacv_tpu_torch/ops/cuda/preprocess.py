@@ -26,14 +26,18 @@ The kernel reads resize weights as tap tables: for every output row
 plain versions multiply by, and checks that they reconstruct them
 exactly.
 
-An NV call runs in one of three forms, which ``nv_launch_plan`` picks:
-``"one_pass"`` (truncated output with a self-computed statistic: one
-launch; a frame's blocks keep its truncated planes on the SM as u8 with
-exact integer moments and meet at one barrier), ``"two_launch"`` (the
-resize launch, then the normalize launch: self statistics without
-truncation, or frames too large for the one-pass form) and
-``"resize_only"`` (static statistics or ``normalize=False``: one launch).
-``one_pass_stats`` is the host twin of the one-pass statistics.
+A call runs in one of four forms, which ``launch_plan`` picks:
+``"moments"`` (BGR, truncated output with a self-computed statistic, the
+config-4 main path: the resize launch stores the truncated planes as u8
+with each block's exact integer moments, then a second launch scales them
+into the f32 output, which is written once and never read back),
+``"one_pass"`` (NV, the same output in one cooperative launch: a frame's
+blocks keep its truncated planes on the SM as u8 and meet at one
+barrier), ``"two_launch"`` (the f32 resize launch, then the
+normalize launch: self statistics without truncation, or frames too
+large for the other forms) and ``"resize_only"`` (static statistics or
+``normalize=False``: one launch).  ``one_pass_stats`` is the host twin of
+the integer-moment statistics.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from ... import config
+from ...core.device_tables import stream_cached, stream_key
 from ...core.types import InterMode
 from ..crop import dynamic_slice
 from ..cvt_color import yuv_to_bgr_q7
@@ -65,9 +70,9 @@ _MAX_FRAMES = 65535  # the kernels' grid z (one-pass: y) dimension
 
 
 @dataclass(frozen=True)
-class NvLimits:
-    """What the NV launch plan needs of the card and the one-pass kernel
-    (``vacv_preprocess_nv_limits``)."""
+class CardLimits:
+    """What the launch plan needs of the card and the one-pass kernel
+    (``vacv_preprocess_limits``)."""
     sms: int
     threads_per_sm: int
     smem_bytes: int     # dynamic shared bytes a one-pass block may hold
@@ -75,12 +80,13 @@ class NvLimits:
 
 
 @dataclass(frozen=True)
-class NvPlan:
-    """One NV call: ``form`` "one_pass" (``blocks`` blocks a frame of 256
+class Plan:
+    """One call: ``form`` "one_pass" (``blocks`` blocks a frame of 256
     threads in one cooperative launch, each owning ``rows`` output rows of
     all three channels in 3 x ``chan`` bytes of shared memory, the output
-    stored evict-first when ``stream``), "two_launch" or "resize_only" (the
-    other fields 0)."""
+    stored evict-first when ``stream``), "moments" (the resize launch, then
+    ``blocks`` blocks a plane of the scale launch), "two_launch" or
+    "resize_only" (the other fields 0)."""
     form: str
     blocks: int = 0
     rows: int = 0
@@ -88,7 +94,8 @@ class NvPlan:
     stream: bool = False
 
 
-NV_FORMS = ("auto", "one_pass", "two_launch")
+FORMS = ("auto", "one_pass", "two_launch")  # what an NV caller may hold a call to
+SOURCES = ("bgr", "nv")
 _GRID_BLOCKS = (1, 2, 4, 8, 16, 32, 64)  # the blocks a frame the plan considers
 _ONE_PASS_THREADS = 256
 # An f32 output above this is stored evict-first: it cannot stay in the
@@ -105,8 +112,17 @@ _MAX_PIXELS_A_THREAD = 2064
 # blocks share SMs: a block's fixed work (its moments, the barrier, the
 # statistics) then stays small beside its taps.
 _MIN_PIXELS_A_THREAD = 4
-# A one-pass frame's pixels: N sum x^2 - (sum x)^2 must fit 64 bits.
+# A frame's pixels in the integer-moment forms: N sum x^2 - (sum x)^2 must
+# fit 64 bits.
 _MAX_ONE_PASS_PIXELS = 2**32 // 255 - 1
+_SCALE_THREADS = 256  # the moments form's scale launch
+
+
+def _scale_blocks(n: int, oh: int, ow: int, lim: CardLimits) -> int:
+    """Blocks a plane of the moments form's scale launch: one wave of the
+    card's threads over the 3n planes, and no block without a float4."""
+    per_plane = max(1, lim.sms * lim.threads_per_sm // _SCALE_THREADS // (3 * n))
+    return min(per_plane, -(-oh * ow // (4 * _SCALE_THREADS)))
 
 
 def _strip_bytes(rows: int, ow: int) -> int:
@@ -115,7 +131,7 @@ def _strip_bytes(rows: int, ow: int) -> int:
     return -(-(rows * ow + 3) // 16) * 16
 
 
-def one_pass_plan(n: int, oh: int, ow: int, lim: NvLimits, blocks: int) -> NvPlan | None:
+def one_pass_plan(n: int, oh: int, ow: int, lim: CardLimits, blocks: int) -> Plan | None:
     """The one-pass form of a call over ``n`` frames to (oh, ow) with
     ``blocks`` blocks a frame, or None where the card cannot run it: a
     cooperative launch needs every block resident at once, counted from
@@ -129,39 +145,50 @@ def one_pass_plan(n: int, oh: int, ow: int, lim: NvLimits, blocks: int) -> NvPla
             and -(-rows * ow // _ONE_PASS_THREADS) <= _MAX_PIXELS_A_THREAD
             and oh * ow <= _MAX_ONE_PASS_PIXELS and n <= _MAX_FRAMES):
         return None
-    return NvPlan("one_pass", blocks, rows, chan, n * 3 * oh * ow * 4 > _STREAM_BYTES)
+    return Plan("one_pass", blocks, rows, chan, n * 3 * oh * ow * 4 > _STREAM_BYTES)
 
 
 @functools.lru_cache(maxsize=256)  # 20 us of Python a call otherwise, on a host-bound path
-def nv_launch_plan(n: int, oh: int, ow: int, lim: NvLimits, *, normalize: bool = True,
-                   self_stats: bool = True, trunc_u8: bool = True,
-                   form: str = "auto") -> NvPlan:
-    """The form and blocks a frame of one NV call over ``n`` frames to
-    (oh, ow): the one place they are decided.
+def launch_plan(n: int, oh: int, ow: int, lim: CardLimits, *, source: str = "nv",
+                normalize: bool = True, self_stats: bool = True, trunc_u8: bool = True,
+                form: str = "auto") -> Plan:
+    """The form and blocks of one call over ``n`` frames of ``source``
+    ("bgr" or "nv") to (oh, ow): the one place they are decided.
 
-    The one-pass form serves truncated output with a self-computed
-    statistic when every block fits the card at once (``one_pass_plan``).
-    A frame takes the most blocks that keep the n·C blocks at or under half
-    of the card's threads and, where they outnumber the SMs, give each
-    thread at least four output pixels; the fewest the card runs where no
-    count does both.  On an H100 this count was the fastest at 1, 8, 32
-    and 128 frames of 224² (PERF.md).
-    ``form`` "one_pass" or "two_launch" holds a call with self statistics
-    to that form (ValueError where it cannot serve the call)."""
-    if form not in NV_FORMS:
-        raise ValueError(f"NV form must be one of {NV_FORMS}, got {form!r}")
+    Truncated output with a self-computed statistic takes the moments form
+    on a BGR call, and on an NV call the one-pass form when every block
+    fits the card at once (``one_pass_plan``); both need a frame under
+    2^32 / 255 pixels.  A one-pass frame takes the most blocks that keep
+    the n·C blocks at or under half of the card's threads and, where they
+    outnumber the SMs, give each thread at least four output pixels; the
+    fewest the card runs where no count does both.  On an H100 this count
+    was the fastest NV form at 1, 8, 32 and 128 frames of 224², and the
+    moments form the fastest BGR one at 1 and 32 frames and at every cubic
+    batch (PERF.md).
+    ``form`` "one_pass" or "two_launch" holds an NV call with self
+    statistics to that form (ValueError where it cannot serve the call)."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    if source not in SOURCES:
+        raise ValueError(f"source must be one of {SOURCES}, got {source!r}")
     if not (normalize and self_stats):
         if form != "auto":
             raise ValueError(f"the {form} form needs a self-computed statistic")
-        return NvPlan("resize_only")
+        return Plan("resize_only")
     if form == "two_launch":
-        return NvPlan("two_launch")
-    ok = [p for c in _GRID_BLOCKS if trunc_u8 and (p := one_pass_plan(n, oh, ow, lim, c))]
+        return Plan("two_launch")
+    exact = trunc_u8 and oh * ow <= _MAX_ONE_PASS_PIXELS
+    if source == "bgr" and form == "auto":
+        if exact and 3 * n <= _MAX_FRAMES:
+            return Plan("moments", _scale_blocks(n, oh, ow, lim))
+        return Plan("two_launch")
+    ok = [p for c in _GRID_BLOCKS
+          if source == "nv" and exact and (p := one_pass_plan(n, oh, ow, lim, c))]
     if not ok:
         if form == "one_pass":
-            raise ValueError(f"the one-pass form does not serve this call ({n} frames to "
-                             f"{oh}x{ow}, trunc_u8={trunc_u8})")
-        return NvPlan("two_launch")
+            raise ValueError(f"the one-pass form does not serve this call ({n} {source} frames "
+                             f"to {oh}x{ow}, trunc_u8={trunc_u8})")
+        return Plan("two_launch")
     good = [p for p in ok if 2 * n * p.blocks * _ONE_PASS_THREADS <= lim.sms * lim.threads_per_sm
             and (n * p.blocks <= lim.sms or p.rows * ow >= _MIN_PIXELS_A_THREAD * _ONE_PASS_THREADS)]
     return good[-1] if good else ok[0]
@@ -210,8 +237,10 @@ def tap_table(n_in: int, n_out: int, interp: str):
     return starts, weights
 
 
-@functools.lru_cache(maxsize=64)
+@stream_cached(maxsize=64)
 def _device_taps(n_in: int, n_out: int, interp: str, device: torch.device):
+    """``tap_table`` on ``device``, copied there once for each CUDA stream
+    (``core/device_tables.py``)."""
     starts, weights = tap_table(n_in, n_out, interp)
     return torch.from_numpy(starts).to(device), torch.from_numpy(weights).to(device)
 
@@ -345,13 +374,13 @@ def preprocess_fused_nv_batch_torch(
 
 
 def one_pass_stats(raw: torch.Tensor, mean=None, stddev=None):
-    """(μ, 1 / (σ + 1e-6)) as f32 (N, 3) tensors, formed as the one-pass
-    kernel forms them from the truncated (N, 3, oh, ow) planes ``raw`` (the
-    ``normalize=False`` output, integer-valued): the integer moments Σx and
-    Σx², μ = Σx · (1/N) and σ = √(N Σx² − (Σx)²) · (1/N) in double, then
-    f32.  A static ``mean`` or ``stddev`` replaces its own, as in the plain
-    version.  The kernel's output is ``(raw − μ) · (1 / (σ + 1e-6))`` in f32,
-    bit for bit."""
+    """(μ, 1 / (σ + 1e-6)) as f32 (N, 3) tensors, formed as the moments and
+    one-pass kernels form them from the truncated (N, 3, oh, ow) planes
+    ``raw`` (the ``normalize=False`` output, integer-valued): the integer
+    moments Σx and Σx², μ = Σx · (1/N) and σ = √(N Σx² − (Σx)²) · (1/N) in
+    double, then f32.  A static ``mean`` or ``stddev`` replaces its own, as
+    in the plain version.  The kernels' output is ``(raw − μ) · (1 / (σ +
+    1e-6))`` in f32, bit for bit."""
     x = raw.to(torch.int64).flatten(2)
     count = x.shape[-1]
     sx, sxx = x.sum(-1), (x * x).sum(-1)
@@ -378,6 +407,11 @@ def _entry_points():
     resize = lib.vacv_preprocess_resize
     resize.restype = i
     resize.argtypes = [i, p, p, p, i, i, i] + tail   # device, stream, src, out, n, h, w
+    moments = lib.vacv_preprocess_moments
+    moments.restype = i
+    # device, stream, src, out, planes, slots, n, h, w, geometry, eps, blocks, have_mean,
+    # have_std, stats
+    moments.argtypes = [i, p, p, p, p, p, i, i, i] + geom + [f, i, i, i] + stats
     nv_resize = lib.vacv_preprocess_nv_resize
     nv_resize.restype = i
     # device, stream, src, out, n, h, w, is_nv12, to_rgb
@@ -390,26 +424,27 @@ def _entry_points():
     # device, stream, src, out, n, h, w, is_nv12, to_rgb, geometry, eps, blocks, rows, chan,
     # have_mean, have_std, evict_first, slots, stats
     one_pass.argtypes = [i, p, p, p, i, i, i, i, i] + geom + [f, i, i, i, i, i, i, p] + stats
-    limits = lib.vacv_preprocess_nv_limits
+    limits = lib.vacv_preprocess_limits
     limits.restype, limits.argtypes = i, [i, p]
-    return lib, resize, nv_resize, norm, one_pass, limits
+    return lib, resize, moments, nv_resize, norm, one_pass, limits
 
 
 @functools.lru_cache(maxsize=None)
-def nv_limits(device_index: int) -> NvLimits:
-    """The card's and the one-pass kernel's limits, for ``nv_launch_plan``."""
+def card_limits(device_index: int) -> CardLimits:
+    """The card's and the NV one-pass kernel's limits, for ``launch_plan``."""
     lib, *_, limits = _entry_points()
     out = (ctypes.c_int * 4)()
-    build.check(lib, limits(device_index, ctypes.cast(out, ctypes.c_void_p)), "NV limits")
-    return NvLimits(*out)
+    build.check(lib, limits(device_index, ctypes.cast(out, ctypes.c_void_p)), "card limits")
+    return CardLimits(*out)
 
 
 def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
-            name, plan=None):
+            name, plan):
     """Launch the kernels of one call and count one launch of ``name``:
-    for the NV form ``plan`` "one_pass" the one-pass kernel alone, else
-    launch 1 (resize; the NV entry when ``nv`` is an (is_nv12, to_rgb)
-    pair) and, for self statistics, launch 2."""
+    ``plan`` (``launch_plan``) "one_pass": the NV one-pass kernel alone;
+    "moments": the resize launch to u8, then the scale launch;
+    else launch 1 (the NV entry when ``nv`` is an (is_nv12, to_rgb) pair)
+    and, for "two_launch", launch 2."""
     n, h, w, left, top0, cw, ch, oh, ow = geom
     if not batch.is_contiguous():
         raise ValueError("fused preprocess kernel needs a contiguous batch")
@@ -432,39 +467,53 @@ def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
     mean_s, std_s = _static_stats(mean), _static_stats(stddev)
     static_norm = bool(normalize) and mean_s is not None and std_s is not None
     zeros = (0.0, 0.0, 0.0)
-    lib, resize, nv_resize, norm, one_pass, _ = _entry_points()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stats = (*(mean_s or zeros), *(std_s or zeros))
+    have = (int(mean_s is not None), int(std_s is not None))
+    lib, resize, moments, nv_resize, norm, one_pass, _ = _entry_points()
+    stream = stream_key(dev)
     taps = (left, ch, top0, top_ptr, oh, ow, ys.data_ptr(), yw.data_ptr(), yw.shape[1],
             xs.data_ptr(), xw.data_ptr(), xw.shape[1])
     eps = u8_eps(INTERP_MODES[interp])
-    if plan is not None and plan.form == "one_pass":
+    if plan.form == "one_pass":
         # each block's moments, 6 x 8 bytes
         slots = torch.empty(n * plan.blocks * 6, dtype=torch.int64, device=dev)
         rc = one_pass(
             dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *map(int, nv), *taps,
-            eps, plan.blocks, plan.rows, plan.chan,
-            int(mean_s is not None), int(std_s is not None), int(plan.stream),
-            slots.data_ptr(), *(mean_s or zeros), *(std_s or zeros),
+            eps, plan.blocks, plan.rows, plan.chan, *have, int(plan.stream), slots.data_ptr(),
+            *stats,
         )
         build.check(lib, rc, f"{name} one-pass kernel")
         config.record_kernel(name)
         return out
-    entry, source_args = (resize, ()) if nv is None else (nv_resize, tuple(map(int, nv)))
-    rc = entry(
-        dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *source_args, *taps,
-        int(trunc_u8), eps, int(static_norm),
-        *(mean_s if static_norm else zeros), *(std_s if static_norm else zeros),
-    )
+    if plan.form == "moments":
+        plane, parts = oh * ow, -(-ow // 32) * -(-oh // 8)
+        # the u8 planes, then each resize block's moments (6 x 8 bytes) at a 16-byte boundary
+        at = -(-n * 3 * plane // 16) * 16
+        scratch = torch.empty(at + n * parts * 48, dtype=torch.uint8, device=dev)
+        rc = moments(dev.index, stream, batch.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                     scratch.data_ptr() + at, n, h, w, *taps, eps, plan.blocks, *have, *stats)
+        build.check(lib, rc, f"{name} moments kernels")
+        config.record_kernel(name)
+        return out
+    norm_stats = (*(mean_s if static_norm else zeros), *(std_s if static_norm else zeros))
+    if nv is not None:
+        rc = nv_resize(dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w,
+                       *map(int, nv), *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
+    else:
+        rc = resize(dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *taps,
+                    int(trunc_u8), eps, int(static_norm), *norm_stats)
     build.check(lib, rc, f"{name} resize kernel")
-    if normalize and not static_norm:
-        rc = norm(
-            dev.index, stream, out.data_ptr(), n * 3, oh * ow,
-            int(mean_s is not None), int(std_s is not None),
-            *(mean_s or zeros), *(std_s or zeros),
-        )
+    if plan.form == "two_launch":
+        rc = norm(dev.index, stream, out.data_ptr(), n * 3, oh * ow, *have, *stats)
         build.check(lib, rc, f"{name} normalize kernel")
     config.record_kernel(name)
     return out
+
+
+def _plan(geom, source, lim, normalize, mean, stddev, trunc_u8, form="auto") -> Plan:
+    self_stats = _static_stats(mean) is None or _static_stats(stddev) is None
+    return launch_plan(geom[0], geom[-2], geom[-1], lim, source=source, normalize=bool(normalize),
+                       self_stats=self_stats, trunc_u8=bool(trunc_u8), form=form)
 
 
 def preprocess_fused_batch(
@@ -497,7 +546,9 @@ def preprocess_fused_batch(
                   trunc_u8=trunc_u8, interp=interp)
     if batch.device.type == "cuda":
         geom = _geometry(batch, crop_rect, out_size, interp, top)
-        return _launch(batch, geom, None, name="preprocess_fused", **kwargs)
+        plan = _plan(geom, "bgr", card_limits(batch.device.index), normalize, mean, stddev,
+                     trunc_u8)
+        return _launch(batch, geom, None, name="preprocess_fused", plan=plan, **kwargs)
     if batch.device.type != "cpu":
         raise ValueError(f"no fused preprocess route for device {batch.device}")
     out = preprocess_fused_batch_torch(batch, crop_rect, out_size, **kwargs)
@@ -528,7 +579,7 @@ def preprocess_fused_nv_batch(
     ``normalize`` and ``trunc_u8`` as in ``preprocess_fused_batch``; the
     resize is the Q11 bilinear one.  Any crop inside the frame is taken.
     ``form`` holds a call with self statistics to the kernel's "one_pass"
-    or "two_launch" form (``nv_launch_plan``).
+    or "two_launch" form (``launch_plan``).
 
     A CUDA batch launches the kernel (counted as
     ``"preprocess_fused_nv"``) or raises; a CPU batch runs the plain
@@ -541,16 +592,14 @@ def preprocess_fused_nv_batch(
                   trunc_u8=trunc_u8)
     if batch.device.type == "cuda":
         geom = _nv_geometry(batch, crop_rect, out_size, top)
-        self_stats = _static_stats(mean) is None or _static_stats(stddev) is None
-        plan = nv_launch_plan(geom[0], geom[-2], geom[-1], nv_limits(batch.device.index),
-                              normalize=bool(normalize), self_stats=self_stats,
-                              trunc_u8=bool(trunc_u8), form=form)
+        plan = _plan(geom, "nv", card_limits(batch.device.index), normalize, mean, stddev,
+                     trunc_u8, form)
         return _launch(batch, geom, (is_nv12, to_rgb), interp="linear",
                        name="preprocess_fused_nv", plan=plan, **kwargs)
     if batch.device.type != "cpu":
         raise ValueError(f"no fused NV preprocess route for device {batch.device}")
-    if form not in NV_FORMS:
-        raise ValueError(f"NV form must be one of {NV_FORMS}, got {form!r}")
+    if form not in FORMS:
+        raise ValueError(f"NV form must be one of {FORMS}, got {form!r}")
     out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, is_nv12=is_nv12,
                                           to_rgb=to_rgb, **kwargs)
     config.record_kernel("preprocess_fused_nv_torch")

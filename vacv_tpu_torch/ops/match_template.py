@@ -15,20 +15,19 @@ device.  Results stay on the device: nothing here reads a value back.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from .. import config
+from ..core.device_tables import stream_cached
 from ..core.image import Image, as_image
 from ..core.types import Layout, MatchMode
 
 
-@functools.lru_cache(maxsize=128)
+@stream_cached(maxsize=128)
 def _ones_band(n_in: int, taps: int, device: torch.device) -> torch.Tensor:
     """(n_in - taps + 1, n_in) band-of-ones windowed-sum matrix on
-    ``device``."""
+    ``device``, made once for each CUDA stream (``core/device_tables.py``)."""
     n_out = n_in - taps + 1
     w = np.zeros((n_out, n_in), np.float32)
     for o in range(n_out):

@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core.device_tables import stream_cached
 from ..core.image import Image, as_image
 from ..core.types import InterMode, Layout, VSize
 
@@ -225,12 +226,12 @@ def _weight_matrices(
     return wy, wx
 
 
-@functools.lru_cache(maxsize=256)
+@stream_cached(maxsize=256)
 def _device_weights(h_in: int, w_in: int, h_out: int, w_out: int, mode: int, quantize: bool,
                     device: torch.device):
     """(W_y, W_xᵀ) of a resize config as tensors on ``device``, copied
-    there once: a call reuses them instead of uploading the host
-    matrices again."""
+    there once for each CUDA stream (``core/device_tables.py``): a call
+    reuses them instead of uploading the host matrices again."""
     wy, wx = _weight_matrices(h_in, w_in, h_out, w_out, mode, quantize)
     return torch.from_numpy(wy).to(device), torch.from_numpy(wx).to(device).T
 
