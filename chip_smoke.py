@@ -42,7 +42,17 @@ Phases, each printed as it runs:
    through ``warp_affine``; the correlation kernel
    against ``conv2d`` (TF32 off), within 1e-5 of the largest response, at
    seven shapes (the channel split, an HWC-strided image, outputs that are
-   no multiple of the tile, 1x1 to 65x65 templates); the tensor-core probe
+   no multiple of the tile, 1x1 to 65x65 templates); the fused kernel on
+   planar u8 planes (config 5's tail: the warp's output at 1, 2 and 8
+   config-5 frames and random planes at config 5's size and odd sizes,
+   every interpolation, self and static statistics: the u8 planes bit for
+   bit or, where cuBLAS orders the plain version's sums otherwise, 1 LSB
+   apart on the truncation step; self statistics bit for bit their integer
+   statistics); the
+   window-sum kernel against the ones-band products (720p x 48², an HWC
+   image, and odd shapes; within 1e-5 of the largest sum, u8 per-channel
+   sums bit for bit) and all six match modes at 720p x 48² against the
+   plain chain; the tensor-core probe
    at every shape of benchmarks/probe_i8.py (bf16 and int8,
    96x128x2048x64, the int8 K sweep, 1024^3x32), the split-reps path and
    ragged tile edges, bit-exact on the probe's integer operands and the
@@ -54,11 +64,12 @@ Phases, each printed as it runs:
    same, on NV21 buffers), the NV chain (a cubic NV config: yuv2bgr and
    normalize once per frame), config 2 (``cvt_color`` → CHW → f32),
    config 5 (``Preprocessor.batch`` on two batches of two 2560x1440
-   frames with a device crop top: one warp launch per batch, one
-   normalize per frame) and the tracking flow of
+   frames with a device crop top: one warp launch and one planar tail
+   call per batch, no normalize launch) and the tracking flow of
    ``examples/camera_tracking.py`` (six 720x1280 NV21 frames with a
-   drifting 48x48 target: ``cvt_color`` → ``match_template`` →
-   ``min_max_loc`` → a device top → the fused NV route; the target found
+   drifting 48x48 target: ``cvt_color`` → ``match_template`` (one
+   window-sum launch a frame) → ``min_max_loc`` → a device top → the
+   fused NV route; the target found
    within 2 px on every frame); each result is held against the plain
    PyTorch chain;
 5. the harness path: the probe script as a user runs it
@@ -87,14 +98,17 @@ Phases, each printed as it runs:
 6. time: each kernel against its plain version (CUDA-event loop slopes
    of ``utils/perf.device_time``, in turns), its bound (bytes at 3.35
    TB/s or operations at the peak of their type) and one library call for
-   the same function where PyTorch has one, and the main paths; the
-   profiler's device time per call of the correlation, ``conv2d`` and
-   ``grid_sample``, and of one tracking frame by kernel; the normalize
+   the same function where PyTorch has one (for the window sums, the
+   ones-band GEMMs they replaced), and the main paths (event and host
+   time); the profiler's device time per call of the correlation,
+   ``conv2d``, ``grid_sample``, the window sums and the GEMMs, and of one
+   tracking frame by kernel (no GEMM left, asserted); the planar tail's
+   queued device time at 1 and 2 frames; the normalize
    kernel at (3, 1080, 1920) and (3, 224, 224), f32 and u8, and the warp
    kernel at config 5 (linear, cubic, nearest, planar, f32) with the
-   kernels launched per call (one each, asserted), config 5's batch by
-   kernel, yuv2bgr at 1080p, 720p and 144x176 (warm and with its source out
-   of L2) and the fused NV kernel at the camera batch (self and static
+   kernels launched per call (one each, asserted), config 5's batch and
+   the tracking frame by kernel, yuv2bgr at 1080p, 720p and 144x176 (warm
+   and with its source out of L2) and the fused NV kernel at the camera batch (self and static
    statistics) and the tracking frame (one launch each, asserted), the
    config-4 kernel's queued device time (``queued_us``) at 32 frames,
    linear, cubic and nearest, self and static statistics, its
@@ -108,9 +122,10 @@ Phases, each printed as it runs:
    1, 8, 32 and 128 frames.
 
 ``python3 chip_smoke.py --kernel-times`` runs the device and build phases
-and the normalize, warp, config-5, yuv2bgr, fused NV and config-4 timings
-alone, config 4 at 1, 8, 32 and 128 frames; a copy of this script in an earlier checkout times that tree's
-kernels with the same code.  ``python3 chip_smoke.py --parent DIR`` runs
+and the normalize, warp, config-5, tracking-frame, yuv2bgr, fused NV and
+config-4 timings alone, config 4 at 1, 8, 32 and 128 frames; a copy of
+this script in an earlier checkout times that tree's kernels with the same
+code.  ``python3 chip_smoke.py --parent DIR`` runs
 the whole script and then ``--kernel-times`` in fresh processes, in DIR
 (an unpacked ``git archive`` of an earlier commit, this script copied in)
 and in this checkout, in turns (parent, change, change, parent), and
@@ -150,6 +165,11 @@ KERNELS = {
     "match_corr": ("vacv_tpu_torch/csrc/match_template.cu",
                    "vacv_tpu/ops/pallas/match_template.py:71"),
     "probe_dot": ("vacv_tpu_torch/csrc/probe_mma.cu", "benchmarks/probe_i8.py:22"),
+    # Kernel #1 on the warp's planar u8 output: config 5's tail.
+    "preprocess_fused_planar": ("vacv_tpu_torch/csrc/preprocess.cu",
+                                "vacv_tpu/ops/pallas/preprocess.py:328"),
+    # No TPU kernel: the JAX box sums are XLA ones-band products.
+    "window_sum": ("vacv_tpu_torch/csrc/window_sum.cu", "vacv_tpu/ops/match_template.py:37"),
 }
 # BASELINE config 5 (benchmarks/baseline_configs.py:148-186): 2560x1440
 # frames, crop (64, 36)-(2496, 1404), a rotated warp to 1216x684, 224 out,
@@ -741,9 +761,173 @@ def phase_compare_corr() -> float:
     return head
 
 
+def config5_planes(n: int, seed: int) -> torch.Tensor:
+    """The warp's (n, 3, 684, 1216) u8 output over n config-5 frames: what
+    config 5's tail reads (black borders where the map leaves the crop)."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch
+
+    left, top, right, bottom = RECT5
+    crop = make_batch(n, H5, W5, seed)[:, top:bottom, left:right].permute(0, 3, 1, 2)
+    minv = vt.invert_affine(np.asarray(M5, np.float32))
+    return warp_planes_batch(crop, minv, WARP5[1], WARP5[0])
+
+
+def check_planar_u8(label, got, planes, out, interp) -> None:
+    """The planar kernel's ``normalize=False`` u8 planes against the plain
+    version: bit for bit, or, where the plain version's dense products sum
+    in another order than the kernel's taps (cuBLAS picks the order by
+    shape), at most 1 LSB on under 1e-3 of the values, every flip on the
+    truncation boundary: the float64 resample of that value lies within
+    1e-4 of where clip(floor(x + eps)) steps."""
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+    from vacv_tpu_torch.ops.resize import u8_eps
+
+    want = pk.preprocess_fused_planes_torch(planes, out, interp=interp, normalize=False)
+    torch.cuda.synchronize()
+    if torch.equal(got, want):
+        log(f"[compare] {label}: bit-exact=True")
+        return
+    d = (got - want).abs()
+    flips = d > 0
+    wy, wx = (torch.from_numpy(pk._resize_weights(n, o, interp)).to("cuda", torch.float64)
+              for n, o in ((planes.shape[-2], out[1]), (planes.shape[-1], out[0])))
+    exact = torch.matmul(torch.matmul(wy, planes.double()), wx.T)[flips]
+    edge = exact + u8_eps(pk.INTERP_MODES[interp])
+    off = (edge - edge.round()).abs().max().item()
+    log(f"[compare] {label}: {int(flips.sum())} values 1 LSB apart "
+        f"({flips.double().mean().item():.2e}), each within {off:.2e} of the truncation step "
+        "in float64 (the plain version's products sum in cuBLAS's order)")
+    require(d.max().item() <= 1.0 and flips.double().mean().item() < 1e-3 and off < 1e-4,
+            f"{label}: u8 planes off the boundary bar")
+
+
+def phase_compare_planar() -> float:
+    """The fused kernel on planar u8 planes (``preprocess_fused_planes``,
+    config 5's tail) against its plain version: the warp's output at 1, 2
+    and 8 config-5 frames, random planes at config 5's size and odd sizes,
+    linear, cubic and nearest, self and static statistics: the
+    ``normalize=False`` u8 planes bit for bit or on the truncation boundary
+    (``check_planar_u8``), the normalized output at
+    cosine >= 1-1e-6 (max-abs printed) and, with self statistics, bit for bit
+    the host twin of its integer statistics over the u8 planes.  Returns
+    the worst max-abs error."""
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+
+    worst, out = 0.0, (OUT, OUT)
+    cases = [(f"config 5 warp output {n}x3x{WARP5[1]}x{WARP5[0]}", config5_planes(n, 150 + n), out)
+             for n in (1, 2, 8)]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(160)
+    for n, h, w, o in ((2, WARP5[1], WARP5[0], out), (3, 37, 53, (61, 29)),
+                       (1, 215, 283, (224, 224)), (2, 64, 112, (112, 64))):
+        planes = torch.randint(0, 256, (n, 3, h, w), generator=g, dtype=torch.uint8, device="cuda")
+        cases.append((f"random {n}x3x{h}x{w} -> {o[0]}x{o[1]}", planes, o))
+    for label, planes, o in cases:
+        for interp in ("linear", "cubic", "nearest"):
+            raw = pk.preprocess_fused_planes(planes, o, interp=interp, normalize=False)
+            check_planar_u8(f"planar {label} {interp} normalize=False", raw, planes, o, interp)
+            for stats, kw in (("self", {}), ("static", STATIC)):
+                got = pk.preprocess_fused_planes(planes, o, interp=interp, **kw)
+                want = pk.preprocess_fused_planes_torch(planes, o, interp=interp, **kw)
+                worst = max(worst, check(f"planar {label} {interp} {stats}", got, want, "cos"))
+                if stats == "self":
+                    mu, inv = pk.one_pass_stats(raw)
+                    require(torch.equal(got, (raw - mu[..., None, None]) * inv[..., None, None]),
+                            f"planar {label} {interp}: not its integer statistics")
+    log(f"[compare] planar: worst max_abs={worst} against the plain version; self statistics "
+        "bit for bit their integer statistics")
+    return worst
+
+
+def close_response(label, got, want, mode, x, k) -> float:
+    """A match_template response against the plain chain's on the card, at
+    the CPU tests' bars: NORMED modes within 1e-4; CCORR and CCOEFF within
+    1e-5 of the largest response; SQDIFF within 1e-5 of the largest window
+    sum of x^2 plus the template's (x, k: the (C, H, W) image and template).
+    Returns the error over the bar's scale."""
+    import vacv_tpu_torch as vt
+
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{label}: shape")
+    err = (got - want).abs().max().item()
+    if mode in (vt.TM_SQDIFF_NORMED, vt.TM_CCORR_NORMED, vt.TM_CCOEFF_NORMED):
+        scale, bar = 1.0, 1e-4
+    elif mode == vt.TM_SQDIFF:
+        sq = torch.nn.functional.avg_pool2d((x.double() ** 2).sum(0)[None, None], k.shape[1:],
+                                            stride=1, divisor_override=1)
+        scale, bar = sq.max().item() + (k.double() ** 2).sum().item(), 1e-5
+    else:
+        scale, bar = want.abs().max().item(), 1e-5
+    log(f"[compare] {label} {mode.name}: max_abs={err} = {err / scale:.3e} of its scale")
+    require(err <= bar * scale, f"{label} {mode.name}: {err} over {bar} x {scale}")
+    return err / scale
+
+
+def phase_compare_window_sum() -> float:
+    """The window-sum kernel against its plain version (the ones-band
+    products, TF32 off): Σ_c x² and the per-channel sums in one launch, at
+    the tracking frame's 720p x 48² (the planes of an HWC u8-valued image,
+    as match_template passes them) and odd shapes (1x1, a window wider than
+    one 64-column pass, full-width and full-height windows, random f32),
+    within 1e-5 of the largest sum, the per-channel sums of u8 values bit
+    for bit; then all six modes of match_template at 720p x 48² against the
+    plain chain.  Returns the max-abs error of Σ_c x² at 720p x 48²."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.ops.cuda.window_sum import window_sums, window_sums_torch
+
+    head = None
+    g = torch.Generator(device="cuda")
+    g.manual_seed(170)
+    for c, h, w, th, tw, frac, hwc in (
+            (3, TRACK_H, TRACK_W, TARGET, TARGET, False, True),
+            (3, TRACK_H, TRACK_W, TARGET, TARGET, True, False),
+            (1, 1, 1, 1, 1, False, False), (3, 97, 161, 65, 33, False, True),
+            (2, 120, 300, 7, 129, True, False), (1, 40, 300, 40, 300, False, False),
+            (3, 37, 61, 1, 61, False, True), (5, 64, 70, 64, 1, True, False)):
+        if frac:
+            x = torch.rand((c, h, w), generator=g, device="cuda") * 2 - 1
+        else:
+            x = torch.randint(0, 256, (c, h, w), generator=g, device="cuda").to(torch.float32)
+        if hwc:
+            x = x.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+        kind = ("f32" if frac else "u8") + (" HWC" if hwc else "")
+        label = f"window sums {c}x{h}x{w} {th}x{tw} {kind}"
+        config.reset_kernel_counts()
+        sq, sums = window_sums(x, th, tw, sq=True, sums=True)
+        torch.cuda.synchronize()
+        require(config.kernel_count("window_sum") == 1, f"{label}: not one launch")
+        want_sq, want_sums = window_sums_torch(x, th, tw, sq=True, sums=True)
+        for name, got, want in (("sq", sq, want_sq), ("sums", sums, want_sums)):
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{label} {name}")
+            scale = max(want.abs().max().item(), 1e-30)
+            err = (got - want).abs().max().item()
+            log(f"[compare] {label} {name}: max_abs={err} = {err / scale:.3e} of the largest sum")
+            require(err <= 1e-5 * scale, f"{label} {name}: {err / scale} of the largest sum")
+            if name == "sq" and head is None:
+                head = err
+        if not frac:
+            require(torch.equal(sums, want_sums), f"{label}: per-channel u8 sums not exact")
+        require(torch.equal(window_sums(x, th, tw)[0], sq), f"{label}: sq alone differs")
+    frames, target, _ = tracking_stream(n=1)
+    bgr = vt.cvt_color(frames[0], vt.COLOR_YUV2BGR_NV21)
+    x, k = (t.permute(2, 0, 1).to(torch.float32) for t in (bgr.data, target))
+    for mode in (vt.TM_SQDIFF, vt.TM_SQDIFF_NORMED, vt.TM_CCORR, vt.TM_CCORR_NORMED,
+                 vt.TM_CCOEFF, vt.TM_CCOEFF_NORMED):
+        got = vt.match_template(bgr, target, mode).data
+        with config.backend("torch"):
+            want = vt.match_template(bgr, target, mode).data
+        close_response(f"match_template {TRACK_H}x{TRACK_W} {TARGET}x{TARGET}", got, want, mode,
+                       x, k)
+    return head
+
+
 def phase_main_config5() -> dict:
-    """BASELINE config 5: crop → one warp over the batch → per-frame
-    resize → CHW f32 → normalize, the crop top moving on the device."""
+    """BASELINE config 5: crop → one warp over the batch → resize → CHW
+    f32 → normalize of the whole warped batch in one planar call, the crop
+    top moving on the device."""
     from vacv_tpu_torch import config
     from vacv_tpu_torch.core.types import VRect
     from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
@@ -757,11 +941,12 @@ def phase_main_config5() -> dict:
     config.reset_kernel_counts()
     outs = [pre.batch(b, top=t) for b, t in zip(batches, tops)]
     torch.cuda.synchronize()
-    names = ("warp_affine", "normalize_fused", "warp_affine_torch", "normalize_fused_torch")
-    launches = {k: config.kernel_count(k) for k in names}
+    names = ("warp_affine", "preprocess_fused_planar", "normalize_fused")
+    launches = {k: config.kernel_count(k) for k in names + tuple(f"{k}_torch" for k in names)}
     log(f"[main] config 5 route={route} launches={launches} for 2 batches of {BATCH5}")
-    require(launches == {"warp_affine": 2, "normalize_fused": 2 * BATCH5,
-                         "warp_affine_torch": 0, "normalize_fused_torch": 0},
+    # Per batch: one warp launch, one planar tail call, no normalize a frame.
+    require(launches == dict.fromkeys(launches, 0) | {"warp_affine": 2,
+                                                      "preprocess_fused_planar": 2},
             f"config 5 launches {launches}")
     with config.backend("torch"):
         require(pre.describe_route((H5, W5, 3)) == "torch_chain", "torch backend, config 5")
@@ -825,7 +1010,7 @@ def phase_main_tracking() -> dict:
     config.reset_kernel_counts()
     outs = [step(nv, target) for nv in frames]
     torch.cuda.synchronize()
-    names = ("yuv2bgr", "match_corr", "preprocess_fused_nv")
+    names = ("yuv2bgr", "match_corr", "window_sum", "preprocess_fused_nv")
     launches = {k: config.kernel_count(k) for k in names}
     log(f"[main] tracking launches={launches} for {len(frames)} frames")
     require(launches == dict.fromkeys(names, len(frames)), f"tracking launches {launches}")
@@ -1056,7 +1241,8 @@ kernel_names: dict = {}  # config-4 label -> the kernels the profiler saw
 def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     """The profiler's device time per call of the normalize kernel at the
     shapes the main paths and the table use, of the warp kernel at BASELINE
-    config 5's geometry, of one config-5 batch by kernel, of yuv2bgr at
+    config 5's geometry, of one config-5 batch and one tracking frame by
+    kernel, of yuv2bgr at
     1080p, 720p and 144x176 (warm, and with the source out of L2), of the
     fused NV kernel at the camera main path's batch (self and static
     statistics) and the tracking flow's frame, and the queued device time
@@ -1122,13 +1308,20 @@ def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     log(f"[time] config 5 main path: {total:.2f} us device per batch of {BATCH5} [{card}]")
     norm = sum(t for k, (t, _) in kernels.items() if any(s in k for s in NORMALIZE_KERNELS))
     warp = sum(t for k, (t, _) in kernels.items() if "warp_kernel" in k)
-    log(f"[time]   of which normalize {norm:.2f} us, warp {warp:.2f} us")
+    planar = sum(t for k, (t, _) in kernels.items() if "PlanarSource" in k or "scale_u8" in k)
+    log(f"[time]   of which normalize {norm:.2f} us, warp {warp:.2f} us, planar tail "
+        f"{planar:.2f} us")
     for k, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"[time]   {t:9.2f} us/batch {100 * t / total:5.1f}%  {c:g} launches/batch  {k[:90]}")
+        log(f"[time]   {t:9.2f} us/batch {100 * t / total:5.1f}%  {c:g} launches/batch  {k[:120]}")
     out["config 5 main path"] = (total, sum(c for _, c in kernels.values()))
     out["config 5 normalize share"] = (norm, 0)
     out["config 5 warp share"] = (warp, 0)
+    out["config 5 planar tail share"] = (planar, 0)
     del batch, crop
+    frames, target, _ = tracking_stream(n=2)
+    step = tracking_pipeline()
+    measure(f"tracking frame {TRACK_H}x{TRACK_W}, {TARGET}x{TARGET} target",
+            lambda: step(frames[1], target), n=20)
 
     # The camera kernels: yuv2bgr on one frame, warm (back-to-back calls,
     # the source in L2) and with 96 MB written before each call (the source
@@ -1509,8 +1702,9 @@ def phase_time_nv(card: str) -> dict:
 
 
 def phase_time_warp_corr(card: str) -> dict:
-    """The warp and correlation kernels against their plain versions, and
-    the config-5 and tracking main paths.  Returns {name: timing}."""
+    """The warp, correlation, window-sum and planar kernels against their
+    plain versions, and the config-5 and tracking main paths (device, event
+    and host time).  Returns {name: timing}."""
     import vacv_tpu_torch as vt
     from vacv_tpu_torch.core.types import VRect
     from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
@@ -1586,6 +1780,8 @@ def phase_time_warp_corr(card: str) -> dict:
         f"[{card}]")
     bound = max(flops / FP32_TFLOPS / 1e9, moved / HBM_TBPS / 1e9)
     times["match_corr"] = timing(k_ms, p_ms, bound, "operations", lib_ms)
+    times["window_sum"] = time_window_sum(card)
+    times["preprocess_fused_planar"] = time_planar(card)
 
     pre = Preprocessor(PreprocessConfig(crop_rect=VRect(*RECT5), warp=(M5, WARP5),
                                         out_size=(OUT, OUT)))
@@ -1595,16 +1791,107 @@ def phase_time_warp_corr(card: str) -> dict:
                       ("device top", lambda: pre.batch(batch, top=dev_top))):
         run()
         main_ms = ms_per_call(run, 20)
+        host = [host_us(run) for _ in range(2)]
         log(f"[time] config 5 main path Preprocessor.batch ({name}): {main_ms:.4f} ms/batch of "
-            f"{BATCH5}, {BATCH5 / main_ms * 1e3:.1f} frames/s [{card}]")
+            f"{BATCH5}, {BATCH5 / main_ms * 1e3:.1f} frames/s; host {host[0]:.1f}, {host[1]:.1f} "
+            f"us/batch (enqueue) [{card}]")
     frames, target, _ = tracking_stream(n=2)
     step = tracking_pipeline()
     step(frames[0], target)
     track_ms = ms_per_call(lambda: step(frames[1], target), 20)
+    host = [host_us(lambda: step(frames[1], target)) for _ in range(2)]
     log(f"[time] tracking main path (cvt_color, match_template, min_max_loc, fused NV "
-        f"preprocess): {track_ms:.4f} ms/frame, {1e3 / track_ms:.1f} frames/s [{card}]")
+        f"preprocess): {track_ms:.4f} ms/frame, {1e3 / track_ms:.1f} frames/s; host "
+        f"{host[0]:.1f}, {host[1]:.1f} us/frame (enqueue) [{card}]")
     tracking_breakdown(lambda: step(frames[1], target), card)
     return times
+
+
+def host_us(fn, n=50) -> float:
+    """Host µs per call of ``fn()``: the enqueue, n calls on the host clock
+    after a warm-up call, the card synchronised before and after."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def time_window_sum(card: str) -> dict:
+    """The window-sum kernel at the tracking frame (Σ_c x² and the
+    per-channel sums of a (3, 720, 1280) HWC u8-valued image over 48 x 48
+    windows, one launch) against its plain version, its bound and the
+    ones-band GEMMs it replaced (the library column): event slopes in
+    turns, and the profiler's device time of each."""
+    from vacv_tpu_torch.ops.cuda.window_sum import _box_sum, window_sums, window_sums_torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(73)
+    x = torch.randint(0, 256, (TRACK_H, TRACK_W, 3), generator=g, device="cuda").float()
+    x = x.permute(2, 0, 1)  # the planes of an HWC image, as match_template passes them
+    q = (x * x).sum(0)
+
+    def kernel():
+        return window_sums(x, TARGET, TARGET, sq=True, sums=True)
+
+    def gemms():  # the four ones-band GEMMs the tracking frame ran before this kernel
+        return _box_sum(q, TARGET, TARGET), _box_sum(x, TARGET, TARGET)
+
+    k_ms, p_ms, kr, pr = time_in_turns(
+        kernel, lambda: window_sums_torch(x, TARGET, TARGET, sq=True, sums=True), 100, 20)
+    lib_ms = ms_per_call(gemms, 20)
+    ho, wo = TRACK_H - TARGET + 1, TRACK_W - TARGET + 1
+    # x read once, Σ_c x² and the three per-channel sums written once; the
+    # adds of the separable direct sums (a th-tap column sum for every
+    # output row and input column, a tw-tap row sum for every output, of x
+    # and x² in each channel) and the squares.
+    moved = (x.numel() + 4 * ho * wo) * 4
+    adds = 3 * 2 * (ho * TRACK_W * (TARGET - 1) + ho * wo * (TARGET - 1)) + x.numel()
+    by_bytes, by_ops = moved / HBM_TBPS / 1e9, adds / FP32_TFLOPS / 1e9
+    dev_k = device_us(kernel, "window_sum_kernel")
+    dev_g = device_us(gemms)
+    log(f"[time] window sums must move {moved / 1e6:.1f} MB ({by_bytes * 1e3:.2f} us) and do "
+        f"{adds / 1e9:.3f} G f32 ops ({by_ops * 1e3:.2f} us); profiler device time per call: "
+        f"kernel {fmt_us(dev_k)}, the ones-band GEMMs {fmt_us(dev_g)}; GEMMs {lib_ms:.4f} ms/call "
+        f"[{card}]")
+    report(f"window sums (3, {TRACK_H}, {TRACK_W}) HWC, {TARGET}x{TARGET}", k_ms, p_ms, kr, pr,
+           moved, (1, "frames"), card)
+    return timing(k_ms, p_ms, max(by_bytes, by_ops),
+                  "bytes" if by_bytes >= by_ops else "operations", lib_ms)
+
+
+def time_planar(card: str) -> dict:
+    """The fused kernel on config 5's warped planes (2 x 3 x 684 x 1216 u8
+    → 224, linear, self statistics: the config-5 tail) against its plain
+    version and its bound; its queued device time at 2 frames and at 1
+    (beside config 4's one frame)."""
+    from vacv_tpu_torch.ops.cuda.preprocess import (
+        _resize_weights, preprocess_fused_planes, preprocess_fused_planes_torch,
+    )
+
+    planes = config5_planes(BATCH5, 74)
+    out = (OUT, OUT)
+    k_ms, p_ms, kr, pr = time_in_turns(lambda: preprocess_fused_planes(planes, out),
+                                       lambda: preprocess_fused_planes_torch(planes, out), 100, 10)
+    h, w = planes.shape[-2:]
+    rows = int(np.count_nonzero(_resize_weights(h, OUT, "linear").any(axis=0)))
+    src = BATCH5 * 3 * rows * w
+    moved = src + BATCH5 * 3 * OUT * OUT * 4
+    queued = {n: queued_us(lambda n=n: preprocess_fused_planes(planes[:n], out)) for n in (1, 2)}
+    static = queued_us(lambda: preprocess_fused_planes(planes, out, **STATIC))
+    log(f"[time] planar tail: taps touch {rows}/{h} rows; the kernel must move "
+        f"{moved / 1e6:.2f} MB (source {src / 1e6:.2f} MB + out "
+        f"{BATCH5 * 3 * OUT * OUT * 4 / 1e6:.2f} MB); queued device time self stats "
+        f"{queued[1]:.2f} us at 1 frame, {queued[2]:.2f} us at {BATCH5}; static {static:.2f} us "
+        f"at {BATCH5} [{card}]")
+    report(f"planar tail {BATCH5}x3x{h}x{w} -> {OUT}", k_ms, p_ms, kr, pr, moved,
+           (BATCH5, "frames"), card)
+    return timing(k_ms, p_ms, moved / HBM_TBPS / 1e9, "bytes")
 
 
 # Kernel-name parts of the tracking frame's named shares.
@@ -1613,13 +1900,15 @@ TRACKING_SHARES = {
     "yuv2bgr": ("yuv2bgr",),
     "stack to HWC after the decode": ("CatArrayBatchedCopy",),
     "correlation": ("corr_kernel", "split_sum"),
+    "window sums": ("window_sum_kernel",),
 }
 
 
 def tracking_breakdown(run, card: str, n: int = 10) -> None:
     """One tracking frame's device time by kernel (the profiler over ``n``
-    frames): the fused NV kernel's, yuv2bgr's, the stack copy's and the
-    correlation's shares, then the largest kernels."""
+    frames): the fused NV kernel's, yuv2bgr's, the stack copy's, the
+    correlation's and the window sums' shares, then the largest kernels;
+    no GEMM may run (the window sums left the ones-band products)."""
     from vacv_tpu_torch.utils.perf import profiler_trace
 
     run()
@@ -1638,6 +1927,9 @@ def tracking_breakdown(run, card: str, n: int = 10) -> None:
     for t, count, key in sorted(kernels, reverse=True)[:8]:
         log(f"[time]   {t / n:9.2f} us/frame {100 * t / n / total:5.1f}%  {count // n} "
             f"launches/frame  {key[:90]}")
+    gemms = [k for _, _, k in kernels if "gemm" in k.lower()]
+    require(not gemms, f"the tracking frame ran GEMMs: {gemms}")
+    log(f"[time]   no GEMM in the tracking frame ({len(kernels)} kernels)")
 
 
 # ---- the harness path: the tensor-core probe, CvProfile, the front end ----
@@ -1804,7 +2096,8 @@ def harness_tests():
 
 def phase_harness(card: str) -> dict:
     """CvProfile over the five BASELINE configs; every row must pass at
-    the 1e-4 bar, and the kernels of configs 2, 4 and 5 must have run."""
+    the 1e-4 bar, and the kernels of configs 2, 4 and 5 (the warp and the
+    planar tail) must have run."""
     from vacv_tpu_torch import config
     from vacv_tpu_torch.profile import CvProfile
 
@@ -1812,7 +2105,7 @@ def phase_harness(card: str) -> dict:
     prof = CvProfile(k_test_times=2, k_log_batch_size=2)
     prof.profile(harness_tests(), verbose=True)
     torch.cuda.synchronize()
-    names = ("yuv2bgr", "preprocess_fused", "warp_affine", "normalize_fused")
+    names = ("yuv2bgr", "preprocess_fused", "warp_affine", "preprocess_fused_planar")
     launches = {k: config.kernel_count(k) for k in names}
     log(f"[harness] launches={launches} [{card}]")
     ok = prof.print_results()
@@ -2009,8 +2302,6 @@ def phase_mesh(card: str) -> dict:
     ``entry()`` on cuda:0 in one launch; ``dryrun_multichip(1)``; the
     host µs a call of ``batched`` against ``batch``.  Returns the
     launches counted."""
-    import time
-
     import torch.distributed as dist
 
     from vacv_tpu_torch import config
@@ -2066,16 +2357,6 @@ def phase_mesh(card: str) -> dict:
     dt = put_sharded(batch, mesh)
     run = pre.batched(mesh)
 
-    def host_us(f, n=50):
-        f()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            f()
-        t = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return t / n * 1e6
-
     us = [host_us(lambda: pre.batch(batch)), host_us(lambda: run(dt)),
           host_us(lambda: run(dt)), host_us(lambda: pre.batch(batch))]
     log(f"[time] host us a call, {BATCH}x{H}x{W}: batched(mesh) {us[1]:.1f}, {us[2]:.1f}; "
@@ -2094,7 +2375,7 @@ def phase_examples(card: str) -> dict:
     config.reset_kernel_counts()
     results = camera_tracking.main([])
     torch.cuda.synchronize()
-    names = ("yuv2bgr", "match_corr", "preprocess_fused_nv")
+    names = ("yuv2bgr", "match_corr", "window_sum", "preprocess_fused_nv")
     launches = {k: config.kernel_count(k) for k in names}
     log(f"[examples] camera_tracking launches={launches} for {len(results)} frames")
     require(launches == dict.fromkeys(names, len(results)) and len(results) == 6,
@@ -2164,6 +2445,8 @@ def main() -> int:
         "warp_affine": phase_compare_warp(),
         "match_corr": phase_compare_corr(),
         "probe_dot": phase_compare_probe(),
+        "preprocess_fused_planar": phase_compare_planar(),
+        "window_sum": phase_compare_window_sum(),
     }
     # Each main path is driven with the counts set to 0 just before it
     # and read just after (inside each phase).
@@ -2173,14 +2456,15 @@ def main() -> int:
     launches["normalize_fused"] = chain["normalize_fused"]
     config5 = phase_main_config5()
     launches["warp_affine"] = config5["warp_affine"]
-    launches["normalize_fused"] += config5["normalize_fused"]
+    launches["preprocess_fused_planar"] = config5["preprocess_fused_planar"]
     tracking = phase_main_tracking()
     launches["match_corr"] = tracking["match_corr"]
+    launches["window_sum"] = tracking["window_sum"]
     launches["yuv2bgr"] += tracking["yuv2bgr"]
     launches["preprocess_fused_nv"] += tracking["preprocess_fused_nv"]
     launches["probe_dot"], probe_times = phase_main_probe(card)
     harness = phase_harness(card)
-    for k in ("yuv2bgr", "preprocess_fused", "warp_affine", "normalize_fused"):
+    for k in ("yuv2bgr", "preprocess_fused", "warp_affine", "preprocess_fused_planar"):
         launches[k] += harness[k]
     frontend = phase_frontend(card)
     launches["preprocess_fused"] += frontend["preprocess_fused"]

@@ -200,7 +200,7 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
     import types
 
     from vacv_tpu_torch.ops.cuda import (
-        build, match_template, normalize, preprocess, probe, warp_affine, yuv2bgr,
+        build, match_template, normalize, preprocess, probe, warp_affine, window_sum, yuv2bgr,
     )
 
     c_types = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong,
@@ -222,7 +222,8 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
     fake = types.SimpleNamespace(**{name: Fn() for name in declared})
     monkeypatch.setattr(build, "library", lambda: types.SimpleNamespace(lib=fake))
     wrappers = (normalize._entry_points, preprocess._entry_points, yuv2bgr._entry_points,
-                warp_affine._entry_points, match_template._entry_points, probe._entry_points)
+                warp_affine._entry_points, match_template._entry_points, probe._entry_points,
+                window_sum._entry_points)
     for entry in wrappers:
         entry.cache_clear()
     try:

@@ -703,11 +703,13 @@ def test_preprocessor_config5_launches_one_warp_per_batch(cuda):
     pre = Preprocessor(cfg, device="cuda")
     batch = batch_on(cuda, n=3, seed=13)
     assert pre.describe_route(batch.shape[1:]) == "cuda_warp"
-    names = ("warp_affine", "normalize_fused", "warp_affine_torch", "normalize_fused_torch")
+    names = ("warp_affine", "preprocess_fused_planar", "normalize_fused", "warp_affine_torch",
+             "preprocess_fused_planar_torch", "normalize_fused_torch")
     before = [config.kernel_count(k) for k in names]
     got = pre.batch(batch, top=torch.tensor(7, device=cuda))
     torch.cuda.synchronize()
-    assert [config.kernel_count(k) - b for k, b in zip(names, before)] == [1, 3, 0, 0]
+    # One warp launch and one planar tail call a batch, no normalize a frame.
+    assert [config.kernel_count(k) - b for k, b in zip(names, before)] == [1, 1, 0, 0, 0, 0]
     with config.backend("torch"):
         want = pre.batch(batch, top=torch.tensor(7, device=cuda))
     assert_close(got, want, "self")
@@ -792,10 +794,12 @@ def test_corr_kernel_reads_strided_images(cuda):
 def test_match_template_on_the_card(cuda, mode):
     img = batch_on(cuda, n=1, seed=14)[0]
     tmpl = img[100:140, 200:236].clone()
-    before = config.kernel_count("match_corr")
+    before, before_sums = config.kernel_count("match_corr"), config.kernel_count("window_sum")
     got = vt.match_template(img, tmpl, mode).data
     torch.cuda.synchronize()
     assert config.kernel_count("match_corr") == before + 1
+    sums = 0 if mode in (vt.TM_CCORR, vt.TM_CCOEFF) else 1
+    assert config.kernel_count("window_sum") == before_sums + sums  # both sums in one launch
     want = vt.match_template(img.cpu(), tmpl.cpu(), mode).data
     scale = 1.0 if mode in (vt.TM_SQDIFF_NORMED, vt.TM_CCORR_NORMED, vt.TM_CCOEFF_NORMED) \
         else want.abs().max().item()
@@ -803,6 +807,98 @@ def test_match_template_on_the_card(cuda, mode):
     _, _, _, (x, y) = vt.min_max_loc(got)
     if mode != vt.TM_SQDIFF and mode != vt.TM_SQDIFF_NORMED and mode != vt.TM_CCORR:
         assert (int(x), int(y)) == (200, 100)
+
+
+# ---- the window-sum kernel ------------------------------------------------
+
+@pytest.mark.parametrize("c,h,w,th,tw,layout", [
+    (3, 720, 1280, 48, 48, "hwc"), (3, 720, 1280, 48, 48, "chw"), (1, 1, 1, 1, 1, "chw"),
+    (3, 97, 161, 65, 33, "hwc"), (2, 120, 300, 7, 129, "chw"), (1, 40, 300, 40, 300, "chw"),
+    (3, 37, 61, 1, 61, "hwc"), (5, 64, 70, 64, 1, "chw"),
+])
+@pytest.mark.parametrize("frac", [False, True], ids=["u8", "f32"])
+def test_window_sum_kernel_matches_plain_version(cuda, c, h, w, th, tw, layout, frac):
+    """Σ_c x² and the per-channel window sums against the ones-band
+    products, within 1e-5 of the largest sum, in one launch for both; the
+    per-channel sums of u8 values equal; either sum alone the same bits."""
+    from vacv_tpu_torch.ops.cuda.window_sum import window_sums, window_sums_torch
+
+    x = rand_on(cuda, (c, h, w), seed=h + tw, frac=frac)
+    if layout == "hwc":  # the planes of an interleaved image, as match_template passes them
+        x = x.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    before = config.kernel_count("window_sum")
+    sq, sums = window_sums(x, th, tw, sq=True, sums=True)
+    torch.cuda.synchronize()
+    assert config.kernel_count("window_sum") == before + 1
+    want_sq, want_sums = window_sums_torch(x, th, tw, sq=True, sums=True)
+    for got, want in ((sq, want_sq), (sums, want_sums)):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert (got - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1e-30)
+    if not frac:
+        assert torch.equal(sums, want_sums)
+    assert torch.equal(window_sums(x, th, tw)[0], sq)
+    assert torch.equal(window_sums(x, th, tw, sq=False, sums=True)[1], sums)
+
+
+# ---- the config-5 tail: the fused kernel on planar u8 planes --------------
+
+@pytest.mark.parametrize("interp", ["linear", "cubic", "nearest"])
+@pytest.mark.parametrize("stats", list(C4_STATS) + ["static", "raw"])
+@pytest.mark.parametrize("n,h,w,out", [(2, 171, 304, (96, 96)), (3, 37, 53, (61, 29)),
+                                       (1, 684, 1216, (224, 224)), (2, 64, 112, (112, 64))])
+def test_planar_kernel_matches_plain_version(cuda, interp, stats, n, h, w, out):
+    """preprocess_fused_planes on (N, 3, h, w) u8 planes: the
+    ``normalize=False`` planes bit for bit or, where cuBLAS sums the plain
+    version's dense products in another order, 1 LSB apart on under 1e-3
+    of the values, each on the truncation boundary in float64; the
+    normalized output within cosine 1-1e-6 of the plain version and, with a
+    self statistic, bit for bit its integer statistics over those planes;
+    one launch a call."""
+    from vacv_tpu_torch.ops.cuda.preprocess import (
+        INTERP_MODES, _resize_weights, one_pass_stats, preprocess_fused_planes,
+        preprocess_fused_planes_torch,
+    )
+    from vacv_tpu_torch.ops.resize import u8_eps
+
+    kw = dict(C4_STATS.get(stats, {}))
+    if stats == "static":
+        kw = dict(mean=(104.0, 117.0, 123.0), stddev=(57.1, 57.4, 58.4))
+    if stats == "raw":
+        kw = dict(normalize=False)
+    planes = batch_on(cuda, n=n, h=h, w=w, seed=h + out[0]).permute(0, 3, 1, 2).contiguous()
+    raw = preprocess_fused_planes(planes, out, interp=interp, normalize=False)
+    plain = preprocess_fused_planes_torch(planes, out, interp=interp, normalize=False)
+    flips = (raw - plain).abs() > 0
+    assert (raw - plain).abs().max().item() <= 1 and flips.double().mean().item() < 1e-3
+    if flips.any():
+        wy, wx = (torch.from_numpy(_resize_weights(a, b, interp)).to(cuda, torch.float64)
+                  for a, b in ((h, out[1]), (w, out[0])))
+        edge = torch.matmul(torch.matmul(wy, planes.double()), wx.T)[flips]
+        edge = edge + u8_eps(INTERP_MODES[interp])
+        assert (edge - edge.round()).abs().max().item() < 1e-4
+    before = config.kernel_count("preprocess_fused_planar")
+    got = preprocess_fused_planes(planes, out, interp=interp, **kw)
+    torch.cuda.synchronize()
+    assert config.kernel_count("preprocess_fused_planar") == before + 1
+    want = preprocess_fused_planes_torch(planes, out, interp=interp, **kw)
+    assert got.shape == want.shape == (n, 3, out[1], out[0])
+    if stats == "raw":
+        assert torch.equal(got, raw)
+    else:
+        assert cosine(got, want) >= 1 - 1e-6 and (got - want).abs().max().item() < 0.05
+    if stats in C4_STATS:
+        mu, inv = one_pass_stats(raw, kw.get("mean"), kw.get("stddev"))
+        assert torch.equal(got, (raw - mu[..., None, None]) * inv[..., None, None])
+
+
+def test_planar_kernel_raises_on_inputs_it_does_not_take(cuda):
+    from vacv_tpu_torch.ops.cuda.preprocess import preprocess_fused_planes
+
+    planes = batch_on(cuda, n=2, h=40, w=60).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        preprocess_fused_planes(planes, (16, 16))
+    with pytest.raises(ValueError, match="uint8"):
+        preprocess_fused_planes(planes.float().contiguous(), (16, 16))
 
 
 # ---- the tensor-core probe ------------------------------------------------

@@ -20,8 +20,8 @@ from vacv_tpu_torch.core import device_tables
 from vacv_tpu_torch.ops.cuda import preprocess as pk
 
 # the package exports functions of these names: import the modules themselves
-mt = importlib.import_module("vacv_tpu_torch.ops.match_template")
 tr = importlib.import_module("vacv_tpu_torch.ops.resize")
+ws = importlib.import_module("vacv_tpu_torch.ops.cuda.window_sum")
 
 
 @pytest.fixture(autouse=True)
@@ -75,7 +75,7 @@ def test_a_table_is_only_handed_to_the_stream_that_made_it(stream):
 @pytest.mark.parametrize("name,make", [
     ("tap tables", lambda dev: pk._device_taps(37, 11, "cubic", dev)),
     ("resize weights", lambda dev: tr._device_weights(41, 57, 19, 23, 2, False, dev)),
-    ("box-sum bands", lambda dev: (mt._ones_band(40, 5, dev),)),
+    ("box-sum bands", lambda dev: (ws._ones_band(40, 5, dev),)),
 ])
 def test_the_three_caches_are_keyed_by_stream(stream, name, make):
     """Each cache gives one stream's tables only to that stream: a second

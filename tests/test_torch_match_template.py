@@ -8,8 +8,12 @@ f32, on a CPU tensor).  Bars: raw modes within a relative error of 1e-5:
 of the response's largest magnitude for CCORR and CCOEFF, and for SQDIFF
 (Σw x² − 2·corr + Σ t², a difference of terms several times its size) of
 the largest Σw x² + Σ t² it cancels from; NORMED modes within 1e-4
-absolute.
+absolute.  The window sums the SQDIFF / NORMED / CCOEFF modes need go
+through the window-sum kernel's wrapper; its plain version (the ones-band
+products) is held to the JAX package's ``_box_sum`` on its own too.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ import vacv_tpu as vc
 import vacv_tpu_torch as vt
 from vacv_tpu import config as jconfig
 from vacv_tpu_torch import config
+from vacv_tpu.ops.match_template import _box_sum as jax_box_sum
+from vacv_tpu_torch.ops.cuda import window_sum as ws
 from vacv_tpu_torch.ops.cuda.match_template import corr_planes, corr_planes_torch
 
 
@@ -175,3 +181,100 @@ def test_corr_split_plan(h_out, w_out, c, sms, splits):
     assert got == splits
     per = -(-c // got)
     assert (got - 1) * per < c
+
+
+# ---- the window sums: Σ_c x² and the per-channel sums over each window ----
+
+def window_image(kind, c, h, w, seed):
+    """(c, h, w) f32: u8 values, random f32, one flat value, or u8 values
+    of low variance (100 or 101)."""
+    rng = np.random.default_rng(seed)
+    if kind == "u8":
+        return rng.integers(0, 256, (c, h, w)).astype(np.float32)
+    if kind == "f32":
+        return rng.random((c, h, w), dtype=np.float32) * 2 - 1
+    if kind == "flat":
+        return np.full((c, h, w), 50.0, np.float32)
+    return (100 + rng.integers(0, 2, (c, h, w))).astype(np.float32)
+
+
+def window_cases():
+    """(h, w, th, tw): sizes 1x1 to 96x128, templates 1x1, 1xW, Hx1, 5x6
+    and 48x48 where they fit."""
+    cases = []
+    for h, w in ((1, 1), (7, 5), (37, 61), (96, 128)):
+        for th, tw in ((1, 1), (1, w), (h, 1), (5, 6), (48, 48)):
+            if th <= h and tw <= w and (h, w, th, tw) not in cases:
+                cases.append((h, w, th, tw))
+    return cases
+
+
+@pytest.mark.parametrize("kind", ["u8", "f32", "flat", "low variance"])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("h,w,th,tw", window_cases())
+def test_window_sums_match_jax_box_sum(h, w, th, tw, channels, kind):
+    """The plain version's Σ_c x² and per-channel window sums against the
+    JAX package's ``_box_sum`` (ones-band products at HIGHEST precision):
+    within 1e-5 of the largest sum, the per-channel sums of integer images
+    equal (every partial sum an integer below 2^24); the same from an HWC
+    image's strided planes."""
+    x = window_image(kind, channels, h, w, seed=h * w + th + tw + channels)
+    want_sq = np.asarray(jax_box_sum(jnp.sum(jnp.asarray(x) ** 2, axis=0), th, tw))
+    want_sums = np.asarray(jax_box_sum(jnp.asarray(x), th, tw))
+    hwc = torch.from_numpy(np.ascontiguousarray(x.transpose(1, 2, 0))).permute(2, 0, 1)
+    for planes in (torch.from_numpy(x), hwc):
+        sq, sums = ws.window_sums(planes, th, tw, sq=True, sums=True)
+        for got, want in ((sq.numpy(), want_sq), (sums.numpy(), want_sums)):
+            assert got.shape == want.shape and got.dtype == np.float32
+            assert np.abs(got - want).max() <= 1e-5 * max(np.abs(want).max(), 1e-30)
+        if kind != "f32":
+            np.testing.assert_array_equal(sums.numpy(), want_sums)
+
+
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: m.name)
+def test_modes_match_jax_at_the_tracking_template(mode):
+    """The tracking flow's 48x48 template over a 96x128 u8 image."""
+    img, tmpl = scene(13, 3, np.uint8, h=96, w=128, th=48, tw=48)
+    with jconfig.backend("jnp"):
+        want = np.asarray(vc.match_template(img, tmpl, int(mode)).data)
+    got = vt.match_template(img, tmpl, mode).numpy()
+    assert got.shape == (49, 81)
+    assert_response_close(got, want, mode, img, tmpl)
+
+
+def test_window_sums_take_one_call_a_match():
+    """One window-sum call a match where a mode needs window sums (both
+    sums in one call for TM_CCOEFF_NORMED), none for CCORR and CCOEFF; the
+    plain version here (no card), and uncounted under the torch backend.
+    The ones-band products live only in that plain version now."""
+    img, tmpl = scene(14, 3, np.uint8)
+    calls = {vt.TM_SQDIFF: 1, vt.TM_SQDIFF_NORMED: 1, vt.TM_CCORR: 0, vt.TM_CCORR_NORMED: 1,
+             vt.TM_CCOEFF: 0, vt.TM_CCOEFF_NORMED: 1}
+    for mode, n in calls.items():
+        k0, p0 = config.kernel_count("window_sum"), config.kernel_count("window_sum_torch")
+        vt.match_template(img, tmpl, mode)
+        assert config.kernel_count("window_sum_torch") == p0 + n, mode.name
+        assert config.kernel_count("window_sum") == k0  # no card here
+    with config.backend("torch"):
+        p0 = config.kernel_count("window_sum_torch")
+        vt.match_template(img, tmpl, vt.TM_CCOEFF_NORMED)
+        assert config.kernel_count("window_sum_torch") == p0
+    mt = importlib.import_module("vacv_tpu_torch.ops.match_template")
+    assert not hasattr(mt, "_ones_band") and not hasattr(mt, "_box_sum")
+
+
+def test_window_sum_wrapper_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((3, 16, 20))
+    with pytest.raises(ValueError, match="float32"):
+        ws.window_sums(x[0], 4, 4)
+    with pytest.raises(ValueError, match="float32"):
+        ws.window_sums(x.double(), 4, 4)
+    with pytest.raises(ValueError, match="does not fit"):
+        ws.window_sums(x, 17, 4)
+    with pytest.raises(ValueError, match="does not fit"):
+        ws.window_sums(x, 4, 0)
+    with pytest.raises(ValueError, match="ask for"):
+        ws.window_sums(x, 4, 4, sq=False, sums=False)
+    sq, sums = ws.window_sums(x + 1, 4, 5, sq=False, sums=True)
+    assert sq is None and sums.shape == (3, 13, 16) and bool((sums == 20).all())
+

@@ -316,17 +316,18 @@ def test_config5_batch_matches_jax_preprocessor(jax_backend, port_backend):
     batch = frames5(12)
     want = jax_pre_batch(jc, batch, jax_backend)
     pre = Preprocessor(cfg)
-    names = ("warp_affine_torch", "normalize_fused_torch")
+    names = ("warp_affine_torch", "preprocess_fused_planar_torch", "normalize_fused_torch")
     before = [config.kernel_count(k) for k in names]
     with config.backend(port_backend):
         route = pre.describe_route(batch.shape[1:])
         got = pre.batch(batch).numpy()
     rose = [config.kernel_count(k) - b for k, b in zip(names, before)]
     if port_backend == "auto":
-        # One warp call for the whole batch, one normalize per frame.
-        assert route == "warp_torch" and rose == [1, 2]
+        # One warp call and one planar tail call for the whole batch, no
+        # normalize per frame.
+        assert route == "warp_torch" and rose == [1, 1, 0]
     else:
-        assert route == "torch_chain" and rose == [0, 0]
+        assert route == "torch_chain" and rose == [0, 0, 0]
     assert got.shape == (2, 3, 32, 32)
     assert_close(got, want)
 

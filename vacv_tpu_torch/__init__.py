@@ -10,8 +10,9 @@ decode through the yuv2bgr kernel, ``ops/cuda/yuv2bgr.py``), the fused
 [NV decode →] crop→resize→normalize kernel (``ops/cuda/preprocess.py``),
 ``warp_affine`` (with the warp kernel, ``ops/cuda/warp_affine.py``), the
 fused ``resize_normalize`` / ``warp_affine_normalize`` pipelines,
-``match_template`` (with the correlation kernel,
-``ops/cuda/match_template.py``), host-side ``imencode``, and the
+``match_template`` (with the correlation and window-sum kernels,
+``ops/cuda/match_template.py``, ``ops/cuda/window_sum.py``), host-side
+``imencode``, and the
 ``Preprocessor`` that routes to them.  The harness layer: ``utils/perf``
 (CUDA-event timing), ``profile`` (``CvProfile`` and the tensor-core
 probe, ``ops/cuda/probe.py``), ``utils/io``, ``utils/loader`` and

@@ -3,8 +3,8 @@
 Some ops keep small constant tables on the device in an LRU cache, so that
 a call does not upload them again: the fused kernel's tap tables
 (``ops/cuda/preprocess.py``), the chain's resize weights
-(``ops/resize.py``) and the template matcher's box-sum bands
-(``ops/match_template.py``).  ``models/serving.py`` runs frames on several
+(``ops/resize.py``) and the box-sum bands of the window sums' plain
+version (``ops/cuda/window_sum.py``).  ``models/serving.py`` runs frames on several
 CUDA streams at once.  A table's memory belongs to the stream that was
 current when it was made: once the cache drops it, PyTorch's caching
 allocator hands that memory to the next allocation on that stream, ordered

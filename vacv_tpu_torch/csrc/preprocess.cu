@@ -11,7 +11,11 @@
 // spreads chroma with lane rolls and repeats chroma rows with a 0/1
 // matmul, all because the TPU has no fast gather.  Here each thread
 // gathers its own taps through L1, and the kernels are templates that
-// differ only in how a tap is read (the Source policy below).
+// differ only in how a tap is read (the Source policy below): interleaved
+// BGR frames, stacked NV buffers, or planar (N, 3, h, w) u8 planes, the
+// affine warp's output, which preprocess_fused_planes takes for BASELINE
+// config 5's tail (resize -> truncation -> normalize of the whole warped
+// batch in one call, where the JAX package vmaps its per-frame tail).
 //
 // Bound: bytes.  The source rows that carry a tap are read once and the
 // (N, 3, oh, ow) f32 planes are written once.  There are a few dozen flops
@@ -29,7 +33,7 @@
 // row (column) a start index and K weights (K = 2 linear, 4 cubic, 1
 // nearest; the NV form is linear only, as in the JAX package).
 //
-// Launch 1 (resize_kernel, either source): one thread per output pixel,
+// Launch 1 (resize_kernel, any source): one thread per output pixel,
 // all three channels, 32 x 8 pixels a block, each tap's bytes gathered
 // through L1 (resample below); f32 out (static statistics, normalize=False,
 // or before the normalize launch for untruncated self statistics).  An NV
@@ -43,15 +47,18 @@
 // the BGR taps as words for f32 output at 8 frames linear and nearest and
 // at 128 cubic (PERF.md).
 //
-// The moments form (BGR, truncated output, self-computed statistics: the
-// config-4 main path).  Launch 1 (moments_resize_kernel) stores the
+// The moments form (BGR or planar, truncated output, self-computed
+// statistics: the config-4 main path and the config-5 tail).  Launch 1
+// (moments_resize_kernel) stores the
 // truncated planes as u8 (4.8 MB at 32 x 224^2 against 19.3 MB of f32) and
 // each block's exact integer moments per channel, sum x and sum x^2, in a
 // slot of its own: a warp reduce, then one barrier.  It reads a tap row's
-// 3 KX bytes as the aligned 4-byte words that hold them (2 to 4 words,
-// through L1), funnel-shifted into place and turned into floats on the
-// adder: 6 loads a linear pixel and 16 a cubic one, where three byte loads
-// a tap take 12 and 48.  Launch 2 (scale_u8_kernel) adds a frame's
+// bytes as the aligned 4-byte words that hold them (load_bytes, through
+// L1), funnel-shifted into place and turned into floats on the adder: a BGR
+// row's 3 KX interleaved bytes in 2 to 4 words (6 loads a linear pixel and
+// 16 a cubic one, where three byte loads a tap take 12 and 48), a planar
+// row's KX bytes of each channel's plane in 1 or 2 words a channel (the
+// Source's load_row).  Launch 2 (scale_u8_kernel) adds a frame's
 // slots, forms mu and sigma from the integers in double, reads the u8
 // planes as 4-byte words and stores float4s (evict-first stores measured
 // no faster at 32 and 128 frames).  The f32 planes are written once and
@@ -132,6 +139,24 @@ struct BgrSource {
     c[0] = __ldg(q);
     c[1] = __ldg(q + 1);
     c[2] = __ldg(q + 2);
+  }
+};
+
+// Planar (N, 3, h, w) u8 planes, rows w bytes apart (the affine warp's
+// output); a tap reads channel c of frame n at ((n 3 + c) h + y) w + x.
+struct PlanarSource {
+  const uint8_t* p;  // frame 0, or frame n after frame(n)
+  int h, w;
+
+  __device__ PlanarSource frame(int n) const {
+    return {p + static_cast<int64_t>(n) * 3 * h * w, h, w};
+  }
+  __device__ void load(int y, int x, float c[3]) const {
+    const uint8_t* q = p + static_cast<int64_t>(y) * w + x;
+    const int64_t plane = static_cast<int64_t>(h) * w;
+    c[0] = __ldg(q);
+    c[1] = __ldg(q + plane);
+    c[2] = __ldg(q + 2 * plane);
   }
 };
 
@@ -235,38 +260,63 @@ __device__ __forceinline__ float byte_to_float(uint32_t w, int e) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + e)) - kTwo23;
 }
 
-// Bytes [b, b + 3 KX) of source row `row`, KX taps of three channels, as
-// floats: the aligned 4-byte words that hold them read through L1 (only
-// those: an aligned word never crosses a page), funnel-shifted so that the
-// stream starts at byte b, each byte turned into a float on the adder.
-template <int KX>
-__device__ __forceinline__ void load_taps(const uint8_t* row, int64_t b, float c[KX][3]) {
-  constexpr int M = (3 * KX + 6) / 4;  // words that hold 3 KX bytes at any offset
-  const uint8_t* first = row + b;
+// Bytes [first, first + B) as floats: the aligned 4-byte words that hold
+// them read through L1 (only those: an aligned word never crosses a page),
+// funnel-shifted so that the stream starts at `first`, each byte turned
+// into a float on the adder.
+template <int B>
+__device__ __forceinline__ void load_bytes(const uint8_t* first, float f[B]) {
+  constexpr int M = (B + 6) / 4;  // words that hold B bytes at any offset
   const int s = static_cast<int>(reinterpret_cast<uintptr_t>(first) & 3);
   const uint32_t* wp = reinterpret_cast<const uint32_t*>(first - s);
   uint32_t w[M + 1];
 #pragma unroll
-  for (int i = 0; i < M; ++i) w[i] = 4 * i < s + 3 * KX ? __ldg(wp + i) : 0u;
+  for (int i = 0; i < M; ++i) w[i] = 4 * i < s + B ? __ldg(wp + i) : 0u;
   w[M] = 0u;
   uint32_t u[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) u[i] = __funnelshift_r(w[i], w[i + 1], 8 * s);
 #pragma unroll
+  for (int b = 0; b < B; ++b) f[b] = byte_to_float(u[b >> 2], b & 3);
+}
+
+// KX taps of row y from column x, all three channels, as the moments form
+// reads them (load_bytes): an interleaved frame's 3 KX bytes, or KX bytes
+// of each channel's plane.
+template <int KX>
+__device__ __forceinline__ void load_row(const BgrSource& frame, int y, int x, float c[KX][3]) {
+  float f[3 * KX];
+  load_bytes<3 * KX>(frame.p + (static_cast<int64_t>(y) * frame.w + x) * 3, f);
+#pragma unroll
   for (int kx = 0; kx < KX; ++kx)
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) c[kx][ch] = byte_to_float(u[(3 * kx + ch) >> 2], (3 * kx + ch) & 3);
+    for (int ch = 0; ch < 3; ++ch) c[kx][ch] = f[3 * kx + ch];
+}
+
+template <int KX>
+__device__ __forceinline__ void load_row(const PlanarSource& frame, int y, int x,
+                                         float c[KX][3]) {
+  const int64_t plane = static_cast<int64_t>(frame.h) * frame.w;
+  const uint8_t* q = frame.p + static_cast<int64_t>(y) * frame.w + x;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float f[KX];
+    load_bytes<KX>(q + ch * plane, f);
+#pragma unroll
+    for (int kx = 0; kx < KX; ++kx) c[kx][ch] = f[kx];
+  }
 }
 
 // The moments form's launch 1 (see the top of the file).  Blocks of 32 x 8
 // threads, a thread an output pixel (ox, oy) of frame blockIdx.z, all three
-// channels, its taps read as words (load_taps): the truncated values as u8
+// channels, its taps read as words (load_row): the truncated values as u8
 // planes shaped as the output into `planes`, and the block's moments sum
 // x[3], sum x^2[3] at slots[(frame parts + blockIdx.y gridDim.x +
-// blockIdx.x) 6], parts = gridDim.x gridDim.y.
-template <int KY, int KX>
+// blockIdx.x) 6], parts = gridDim.x gridDim.y.  Source: BgrSource or
+// PlanarSource.
+template <class Source, int KY, int KX>
 __global__ void __launch_bounds__(kBlockX * kBlockY) moments_resize_kernel(
-    BgrSource source, uint8_t* __restrict__ planes, unsigned long long* __restrict__ slots,
+    Source source, uint8_t* __restrict__ planes, unsigned long long* __restrict__ slots,
     int left, int ch, int top, const int* __restrict__ top_ptr, int oh, int ow,
     const int* __restrict__ ystart, const float* __restrict__ ywt,
     const int* __restrict__ xstart, const float* __restrict__ xwt, float eps) {
@@ -282,16 +332,15 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) moments_resize_kernel(
   uint32_t u[3] = {0, 0, 0};
   if (ox < ow && oy < oh) {
     const int t = crop_top(top_ptr, top, source.h, ch);
-    const int64_t pitch = static_cast<int64_t>(source.w) * 3;
-    const uint8_t* row = source.frame(n).p + (t + __ldg(ystart + oy)) * pitch;
-    const int64_t bx = 3 * static_cast<int64_t>(left + __ldg(xstart + ox));
+    const Source frame = source.frame(n);
+    const int y0 = t + __ldg(ystart + oy), x0 = left + __ldg(xstart + ox);
     // The order of resample(): for each horizontal tap the vertical sum,
     // each sum taken over ky in order.
     float v[KX][3];
 #pragma unroll
     for (int ky = 0; ky < KY; ++ky) {
       float c[KX][3];
-      load_taps<KX>(row + ky * pitch, bx, c);
+      load_row<KX>(frame, y0 + ky, x0, c);
       const float wy = __ldg(ywt + oy * KY + ky);
 #pragma unroll
       for (int kx = 0; kx < KX; ++kx)
@@ -597,6 +646,51 @@ int launch_resize(int device, void* stream, Source source, void* out, int n,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The moments form's two launches for one source kind (see
+// vacv_preprocess_moments).
+template <class Source>
+int launch_moments(cudaStream_t s, Source source, float* out, uint8_t* planes,
+                   unsigned long long* slots, int n, int left, int ch, int top,
+                   const int* top_ptr, int oh, int ow, const int* ystart, const float* ywt, int ky,
+                   const int* xstart, const float* xwt, int kx, float eps, int blocks,
+                   int have_mean, int have_std, Stats st) {
+  const int64_t plane = static_cast<int64_t>(oh) * ow;
+  const int parts = ((ow + kBlockX - 1) / kBlockX) * ((oh + kBlockY - 1) / kBlockY);
+  const dim3 grid((ow + kBlockX - 1) / kBlockX, (oh + kBlockY - 1) / kBlockY, n);
+  const dim3 block(kBlockX, kBlockY);
+  cudaError_t e = cudaErrorInvalidValue;
+#define VACV_MOMENTS_CASE(KY, KX)                                                          \
+  if (ky == KY && kx == KX) {                                                              \
+    moments_resize_kernel<Source, KY, KX><<<grid, block, 0, s>>>(                          \
+        source, planes, slots, left, ch, top, top_ptr, oh, ow, ystart, ywt, xstart, xwt, eps); \
+    e = cudaGetLastError();                                                                \
+  }
+  VACV_MOMENTS_CASE(2, 2)
+  VACV_MOMENTS_CASE(4, 4)
+  VACV_MOMENTS_CASE(1, 1)
+  VACV_MOMENTS_CASE(1, 2)
+  VACV_MOMENTS_CASE(2, 1)
+  VACV_MOMENTS_CASE(1, 4)
+  VACV_MOMENTS_CASE(4, 1)
+  VACV_MOMENTS_CASE(2, 4)
+  VACV_MOMENTS_CASE(4, 2)
+#undef VACV_MOMENTS_CASE
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 3 * n);
+  cfg.blockDim = dim3(kScaleThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, scale_u8_kernel,
+                                             static_cast<const uint8_t*>(planes), out,
+                                             static_cast<const unsigned long long*>(slots),
+                                             parts, plane, have_mean, have_std, st));
+}
+
 // Opt one one-pass kernel into the largest dynamic shared memory the card
 // allows (once per device); `limit` gets the dynamic bytes a block may hold.
 template <class Source, int KY, int KX>
@@ -672,34 +766,40 @@ int launch_one_pass(int device, cudaStream_t s, Source source, float* out, int n
 
 extern "C" {
 
-// Launch 1 over (n, h, w, 3) u8 BGR frames.  Pointers are device pointers;
-// top_ptr may be null, and then `top` is used.  Returns a cudaError_t (0 on
-// success).
+// Launch 1 over (n, h, w, 3) u8 BGR frames, or, with `planar`, over (n, 3,
+// h, w) u8 planes.  Pointers are device pointers; top_ptr may be null, and
+// then `top` is used.  Returns a cudaError_t (0 on success).
 int vacv_preprocess_resize(int device, void* stream, const void* src,
-                           void* out, int n, int h, int w, int left, int ch,
+                           void* out, int n, int h, int w, int planar, int left, int ch,
                            int top, const void* top_ptr, int oh, int ow,
                            const void* ystart, const void* ywt, int ky,
                            const void* xstart, const void* xwt, int kx,
                            int trunc_u8, float eps, int static_norm, float m0,
                            float m1, float m2, float s0, float s1, float s2) {
-  const BgrSource source = {static_cast<const uint8_t*>(src), h, w};
-  return launch_resize<4>(device, stream, source, out, n, left, ch, top,
-                          top_ptr, oh, ow, ystart, ywt, ky, xstart, xwt, kx,
-                          trunc_u8, eps, static_norm,
-                          Stats{{m0, m1, m2}, {s0, s1, s2}});
+  const uint8_t* p = static_cast<const uint8_t*>(src);
+  const Stats st = {{m0, m1, m2}, {s0, s1, s2}};
+  if (planar) {
+    return launch_resize<4>(device, stream, PlanarSource{p, h, w}, out, n, left, ch, top,
+                            top_ptr, oh, ow, ystart, ywt, ky, xstart, xwt, kx, trunc_u8, eps,
+                            static_norm, st);
+  }
+  return launch_resize<4>(device, stream, BgrSource{p, h, w}, out, n, left, ch, top,
+                          top_ptr, oh, ow, ystart, ywt, ky, xstart, xwt, kx, trunc_u8, eps,
+                          static_norm, st);
 }
 
-// The moments form over (n, h, w, 3) u8 BGR frames: the resize launch
-// (moments_resize_kernel: u8 planes into `planes`, (n, 3, oh, ow) u8, and its
-// blocks' moments into `slots`, ceil(ow / 32) x ceil(oh / 8) x 6 u64 a
-// frame), then the scale launch (scale_u8_kernel, a programmatic dependent
-// launch: `blocks` blocks a plane scale the planes into `out`, (n, 3, oh,
-// ow) f32, with per-(frame, channel) statistics, a self-computed one where
-// have_mean or have_std is 0, the given m*, s* otherwise).  The rest as
-// vacv_preprocess_resize.  Returns a cudaError_t.
+// The moments form over (n, h, w, 3) u8 BGR frames, or, with `planar`, (n,
+// 3, h, w) u8 planes: the resize launch (moments_resize_kernel: u8 planes
+// into `planes`, (n, 3, oh, ow) u8, and its blocks' moments into `slots`,
+// ceil(ow / 32) x ceil(oh / 8) x 6 u64 a frame), then the scale launch
+// (scale_u8_kernel, a programmatic dependent launch: `blocks` blocks a plane
+// scale the planes into `out`, (n, 3, oh, ow) f32, with per-(frame,
+// channel) statistics, a self-computed one where have_mean or have_std is
+// 0, the given m*, s* otherwise).  The rest as vacv_preprocess_resize.
+// Returns a cudaError_t.
 int vacv_preprocess_moments(int device, void* stream, const void* src, void* out, void* planes,
-                            void* slots, int n, int h, int w, int left, int ch, int top,
-                            const void* top_ptr, int oh, int ow, const void* ystart,
+                            void* slots, int n, int h, int w, int planar, int left, int ch,
+                            int top, const void* top_ptr, int oh, int ow, const void* ystart,
                             const void* ywt, int ky, const void* xstart, const void* xwt, int kx,
                             float eps, int blocks, int have_mean, int have_std, float m0,
                             float m1, float m2, float s0, float s1, float s2) {
@@ -708,48 +808,23 @@ int vacv_preprocess_moments(int device, void* stream, const void* src, void* out
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t plane = static_cast<int64_t>(oh) * ow;
-  const int parts = ((ow + kBlockX - 1) / kBlockX) * ((oh + kBlockY - 1) / kBlockY);
   const Stats st = {{m0, m1, m2}, {s0, s1, s2}};
-  const BgrSource source = {static_cast<const uint8_t*>(src), h, w};
+  const uint8_t* p = static_cast<const uint8_t*>(src);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
   uint8_t* p8 = static_cast<uint8_t*>(planes);
   unsigned long long* sl = static_cast<unsigned long long*>(slots);
-  const dim3 grid((ow + kBlockX - 1) / kBlockX, (oh + kBlockY - 1) / kBlockY, n);
-  const dim3 block(kBlockX, kBlockY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = cudaErrorInvalidValue;
-#define VACV_MOMENTS_CASE(KY, KX)                                                                \
-  if (ky == KY && kx == KX) {                                                                    \
-    moments_resize_kernel<KY, KX><<<grid, block, 0, s>>>(                                        \
-        source, p8, sl, left, ch, top, static_cast<const int*>(top_ptr), oh, ow,                 \
-        static_cast<const int*>(ystart), static_cast<const float*>(ywt),                         \
-        static_cast<const int*>(xstart), static_cast<const float*>(xwt), eps);                   \
-    e = cudaGetLastError();                                                                      \
+  const int* tp = static_cast<const int*>(top_ptr);
+  const int* ys = static_cast<const int*>(ystart);
+  const float* yw = static_cast<const float*>(ywt);
+  const int* xs = static_cast<const int*>(xstart);
+  const float* xw = static_cast<const float*>(xwt);
+  if (planar) {
+    return launch_moments(s, PlanarSource{p, h, w}, o, p8, sl, n, left, ch, top, tp, oh, ow, ys,
+                          yw, ky, xs, xw, kx, eps, blocks, have_mean, have_std, st);
   }
-  VACV_MOMENTS_CASE(2, 2)
-  VACV_MOMENTS_CASE(4, 4)
-  VACV_MOMENTS_CASE(1, 1)
-  VACV_MOMENTS_CASE(1, 2)
-  VACV_MOMENTS_CASE(2, 1)
-  VACV_MOMENTS_CASE(1, 4)
-  VACV_MOMENTS_CASE(4, 1)
-  VACV_MOMENTS_CASE(2, 4)
-  VACV_MOMENTS_CASE(4, 2)
-#undef VACV_MOMENTS_CASE
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, 3 * n);
-  cfg.blockDim = dim3(kScaleThreads);
-  cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, scale_u8_kernel, static_cast<const uint8_t*>(p8),
-                                             static_cast<float*>(out),
-                                             static_cast<const unsigned long long*>(sl), parts,
-                                             plane, have_mean, have_std, st));
+  return launch_moments(s, BgrSource{p, h, w}, o, p8, sl, n, left, ch, top, tp, oh, ow, ys, yw,
+                        ky, xs, xw, kx, eps, blocks, have_mean, have_std, st);
 }
 
 // Launch 1 over (n, h * 3 / 2, w) u8 stacked NV buffers; h is the Y

@@ -8,12 +8,14 @@ is one fused call (``ops/cuda/preprocess.py``): over u8 BGR frames, or,
 with an NV ``color_code`` and bilinear resize, over stacked NV21/NV12
 camera buffers with the decode inside the kernel.  A config with a
 ``warp`` (BASELINE config 5) crops the batch, warps all its frames in
-one call of the warp kernel's wrapper (``ops/cuda/warp_affine.py``) and
-runs the per-frame tail (resize → layout → f32 → normalize).  Each
-wrapper is the CUDA kernel for a CUDA tensor and its plain PyTorch
-version for a CPU tensor.  Anything else runs the chain of ops frame by
-frame; an NV chain decodes straight to CHW planes first, any other
-colour code goes through ``cvt_color``.
+one call of the warp kernel's wrapper (``ops/cuda/warp_affine.py``), then
+runs the tail (resize → layout → f32 → normalize): on three u8 planes
+with a linear, cubic or nearest resize to CHW, as one call of the fused
+kernel over the whole warped batch (``preprocess_fused_planes``), else
+frame by frame.  Each wrapper is the CUDA kernel for a CUDA tensor and
+its plain PyTorch version for a CPU tensor.  Anything else runs the chain
+of ops frame by frame; an NV chain decodes straight to CHW planes first,
+any other colour code goes through ``cvt_color``.
 
 Devices: a tensor is processed on the device it lies on; a numpy input
 goes to the ``device`` the Preprocessor was given, by default
@@ -32,7 +34,7 @@ from ..core.image import Image, as_tensor
 from ..core.types import ColorCode, InterMode, Layout, VRect
 from ..ops.crop import crop, crop_dynamic, dynamic_slice
 from ..ops.cuda.preprocess import (
-    INTERP_MODES, preprocess_fused_batch, preprocess_fused_nv_batch,
+    INTERP_MODES, preprocess_fused_batch, preprocess_fused_nv_batch, preprocess_fused_planes,
 )
 from ..ops.cuda.warp_affine import warp_planes_batch
 from ..ops.cvt_color import cvt_color, nv_code, nv_decode_channels
@@ -138,9 +140,8 @@ class Preprocessor:
 
     def _warp_route(self) -> bool:
         """Does a batch take the warp route (one warp call over the whole
-        batch, then the per-frame tail)?  Any warp config does, under the
-        ``auto`` backend, whatever its input shape, type or
-        interpolation."""
+        batch, then the tail)?  Any warp config does, under the ``auto``
+        backend, whatever its input shape, type or interpolation."""
         return self.cfg.warp is not None and config.use_fused()
 
     def describe_route(self, shape, dtype=None, device=None) -> str:
@@ -217,11 +218,24 @@ class Preprocessor:
             img = warp_affine(img.change_layout(Layout.CHW), [list(r) for r in m], tuple(dsize))
         return self._tail(img)
 
+    def _planar_tail(self, warped) -> str | None:
+        """The fused kernel's interpolation name when the tail of a warped
+        (N, C, h, w) batch runs as one ``preprocess_fused_planes`` call:
+        three u8 planes, an output size, CHW output and a linear, cubic or
+        nearest resize.  None keeps the per-frame ``_tail``."""
+        cfg = self.cfg
+        if warped.dtype != torch.uint8 or warped.shape[1] != 3:
+            return None
+        if cfg.out_size is None or cfg.out_layout != Layout.CHW:
+            return None
+        return _FUSED_INTERP.get(InterMode(cfg.interpolation))
+
     def _run_warp(self, batch, top):
         """BASELINE config 5: [NV decode →] crop the batch, warp all N·C
         planes in one call (INTER_LINEAR, BORDER_CONSTANT, border value 0,
-        as the reference's ``warp_affine(img, m, dsize)``), then the
-        per-frame tail."""
+        as the reference's ``warp_affine(img, m, dsize)``), then the tail:
+        one fused call over the warped batch (``_planar_tail``), else the
+        per-frame ``_tail``."""
         cfg = self.cfg
         if cfg.color_code is not None:
             planes = torch.stack([_decode_color(Image(f, Layout.HWC), cfg.color_code)
@@ -242,6 +256,10 @@ class Preprocessor:
         m, (w, h) = cfg.warp
         minv = invert_affine(np.asarray([list(r) for r in m], dtype=np.float32))
         out = warp_planes_batch(planes, minv, int(h), int(w))
+        interp = self._planar_tail(out)
+        if interp is not None:
+            return preprocess_fused_planes(out, cfg.out_size, interp=interp, mean=cfg.mean,
+                                           stddev=cfg.stddev, normalize=cfg.normalize)
         return torch.stack([self._tail(Image(o[0] if gray else o, Layout.CHW)) for o in out])
 
     def batch(self, arr, top=None):

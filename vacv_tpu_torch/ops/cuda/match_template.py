@@ -58,9 +58,13 @@ def _check(img, k):
 def corr_planes_torch(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``conv2d`` (a cross-correlation) in f32 with
     one output channel.  Runs on any device; on a card, turn TF32 off
-    (``torch.backends.cudnn.allow_tf32``) for f32 results."""
+    (``torch.backends.cudnn.allow_tf32``) for f32 results.  On the CPU it
+    runs without oneDNN, whose f32 convolution was 2.1e-5 of the largest
+    response off the float64 one at a 48×48×3 template (JAX's
+    2.7e-7)."""
     _check(img, k)
-    return torch.nn.functional.conv2d(img[None], k[None])[0, 0]
+    with torch.backends.mkldnn.flags(enabled=False):
+        return torch.nn.functional.conv2d(img[None], k[None])[0, 0]
 
 
 def split_plan(h_out: int, w_out: int, c: int, sms: int) -> int:

@@ -14,11 +14,18 @@ points:
   only, over a (N, H·3/2, W) u8 stacked NV21/NV12 batch, with the Q7
   decode (``ops/cvt_color.py``) done per tap inside the kernel.
 
+``preprocess_fused_planes`` runs the same kernel's resize → truncation →
+normalize on (N, 3, h, w) u8 planes, the affine warp's output: BASELINE
+config 5's tail for the whole warped batch in one call (the reference
+runs that tail per frame under ``jax.vmap``, ``vacv_tpu/models/
+pipeline.py::_run_warp_fold``).
+
 Each wrapper launches the hand-written kernel
 (``vacv_tpu_torch/csrc/preprocess.cu``) on a CUDA tensor or raises; on a
 CPU tensor it runs the plain PyTorch version beside it
-(``preprocess_fused_batch_torch`` / ``preprocess_fused_nv_batch_torch``),
-which the CPU tests and ``chip_smoke.py`` hold the kernel against.
+(``preprocess_fused_batch_torch`` / ``preprocess_fused_nv_batch_torch`` /
+``preprocess_fused_planes_torch``), which the CPU tests and
+``chip_smoke.py`` hold the kernel against.
 
 The kernel reads resize weights as tap tables: for every output row
 (column) a start index and K weights, K = 2 (linear), 4 (cubic) or
@@ -27,10 +34,11 @@ plain versions multiply by, and checks that they reconstruct them
 exactly.
 
 A call runs in one of four forms, which ``launch_plan`` picks:
-``"moments"`` (BGR, truncated output with a self-computed statistic, the
-config-4 main path: the resize launch stores the truncated planes as u8
-with each block's exact integer moments, then a second launch scales them
-into the f32 output, which is written once and never read back),
+``"moments"`` (BGR or planar, truncated output with a self-computed
+statistic, the config-4 main path and the config-5 tail: the resize launch
+stores the truncated planes as u8 with each block's exact integer moments,
+then a second launch scales them into the f32 output, which is written
+once and never read back),
 ``"one_pass"`` (NV, the same output in one cooperative launch: a frame's
 blocks keep its truncated planes on the SM as u8 and meet at one
 barrier), ``"two_launch"`` (the f32 resize launch, then the
@@ -95,7 +103,7 @@ class Plan:
 
 
 FORMS = ("auto", "one_pass", "two_launch")  # what an NV caller may hold a call to
-SOURCES = ("bgr", "nv")
+SOURCES = ("bgr", "nv", "planar")
 _GRID_BLOCKS = (1, 2, 4, 8, 16, 32, 64)  # the blocks a frame the plan considers
 _ONE_PASS_THREADS = 256
 # An f32 output above this is stored evict-first: it cannot stay in the
@@ -153,11 +161,11 @@ def launch_plan(n: int, oh: int, ow: int, lim: CardLimits, *, source: str = "nv"
                 normalize: bool = True, self_stats: bool = True, trunc_u8: bool = True,
                 form: str = "auto") -> Plan:
     """The form and blocks of one call over ``n`` frames of ``source``
-    ("bgr" or "nv") to (oh, ow): the one place they are decided.
+    ("bgr", "nv" or "planar") to (oh, ow): the one place they are decided.
 
     Truncated output with a self-computed statistic takes the moments form
-    on a BGR call, and on an NV call the one-pass form when every block
-    fits the card at once (``one_pass_plan``); both need a frame under
+    on a BGR or planar call, and on an NV call the one-pass form when every
+    block fits the card at once (``one_pass_plan``); both need a frame under
     2^32 / 255 pixels.  A one-pass frame takes the most blocks that keep
     the n·C blocks at or under half of the card's threads and, where they
     outnumber the SMs, give each thread at least four output pixels; the
@@ -178,7 +186,7 @@ def launch_plan(n: int, oh: int, ow: int, lim: CardLimits, *, source: str = "nv"
     if form == "two_launch":
         return Plan("two_launch")
     exact = trunc_u8 and oh * ow <= _MAX_ONE_PASS_PIXELS
-    if source == "bgr" and form == "auto":
+    if source != "nv" and form == "auto":
         if exact and 3 * n <= _MAX_FRAMES:
             return Plan("moments", _scale_blocks(n, oh, ow, lim))
         return Plan("two_launch")
@@ -286,6 +294,17 @@ def _geometry(batch, crop_rect, out_size, interp, top):
     return (n, h, w) + _crop_geometry(h, w, crop_rect, out_size, top)
 
 
+def _planes_geometry(planes, out_size, interp):
+    """(n, h, w, left, top, cw, ch, oh, ow) of (N, 3, h, w) u8 planes, read
+    whole (no crop), or ValueError."""
+    if planes.dtype != torch.uint8 or planes.ndim != 4 or planes.shape[1] != 3:
+        raise ValueError("fused planar preprocess needs (N, 3, h, w) uint8")
+    if interp not in INTERP_MODES:
+        raise ValueError(f"interp must be one of {tuple(INTERP_MODES)}, got {interp!r}")
+    n, _, h, w = planes.shape
+    return (n, h, w) + _crop_geometry(h, w, None, out_size, None)
+
+
 def _nv_geometry(batch, crop_rect, out_size, top):
     """(n, h, w, left, top, cw, ch, oh, ow) of a stacked NV batch (h the
     Y height), or ValueError."""
@@ -373,6 +392,16 @@ def preprocess_fused_nv_batch_torch(
     return _resample(planes, oh, ow, "linear", trunc_u8, normalize, mean, stddev)
 
 
+def preprocess_fused_planes_torch(planes, out_size, *, interp="linear", mean=None,
+                                  stddev=None, normalize=True):
+    """Plain PyTorch version of the fused kernel on (N, 3, h, w) u8 planes:
+    the same tail as ``preprocess_fused_batch_torch`` (dense weights,
+    vertical pass first, the u8 epilogue, then normalization) with no
+    crop.  Runs on any device."""
+    _, _, _, _, _, _, _, oh, ow = _planes_geometry(planes, out_size, interp)
+    return _resample(planes.to(torch.float32), oh, ow, interp, True, normalize, mean, stddev)
+
+
 def one_pass_stats(raw: torch.Tensor, mean=None, stddev=None):
     """(μ, 1 / (σ + 1e-6)) as f32 (N, 3) tensors, formed as the moments and
     one-pass kernels form them from the truncated (N, 3, oh, ow) planes
@@ -406,12 +435,12 @@ def _entry_points():
     tail = geom + [i, f, i] + stats  # trunc_u8, eps, static_norm
     resize = lib.vacv_preprocess_resize
     resize.restype = i
-    resize.argtypes = [i, p, p, p, i, i, i] + tail   # device, stream, src, out, n, h, w
+    resize.argtypes = [i, p, p, p, i, i, i, i] + tail  # device, stream, src, out, n, h, w, planar
     moments = lib.vacv_preprocess_moments
     moments.restype = i
-    # device, stream, src, out, planes, slots, n, h, w, geometry, eps, blocks, have_mean,
-    # have_std, stats
-    moments.argtypes = [i, p, p, p, p, p, i, i, i] + geom + [f, i, i, i] + stats
+    # device, stream, src, out, planes, slots, n, h, w, planar, geometry, eps, blocks,
+    # have_mean, have_std, stats
+    moments.argtypes = [i, p, p, p, p, p, i, i, i, i] + geom + [f, i, i, i] + stats
     nv_resize = lib.vacv_preprocess_nv_resize
     nv_resize.restype = i
     # device, stream, src, out, n, h, w, is_nv12, to_rgb
@@ -439,12 +468,13 @@ def card_limits(device_index: int) -> CardLimits:
 
 
 def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
-            name, plan):
+            name, plan, planar=False):
     """Launch the kernels of one call and count one launch of ``name``:
     ``plan`` (``launch_plan``) "one_pass": the NV one-pass kernel alone;
     "moments": the resize launch to u8, then the scale launch;
     else launch 1 (the NV entry when ``nv`` is an (is_nv12, to_rgb) pair)
-    and, for "two_launch", launch 2."""
+    and, for "two_launch", launch 2.  ``planar``: ``batch`` is (N, 3, h,
+    w) planes, not (N, h, w, 3) frames."""
     n, h, w, left, top0, cw, ch, oh, ow = geom
     if not batch.is_contiguous():
         raise ValueError("fused preprocess kernel needs a contiguous batch")
@@ -491,7 +521,8 @@ def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
         at = -(-n * 3 * plane // 16) * 16
         scratch = torch.empty(at + n * parts * 48, dtype=torch.uint8, device=dev)
         rc = moments(dev.index, stream, batch.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                     scratch.data_ptr() + at, n, h, w, *taps, eps, plan.blocks, *have, *stats)
+                     scratch.data_ptr() + at, n, h, w, int(planar), *taps, eps, plan.blocks,
+                     *have, *stats)
         build.check(lib, rc, f"{name} moments kernels")
         config.record_kernel(name)
         return out
@@ -500,8 +531,8 @@ def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
         rc = nv_resize(dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w,
                        *map(int, nv), *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
     else:
-        rc = resize(dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *taps,
-                    int(trunc_u8), eps, int(static_norm), *norm_stats)
+        rc = resize(dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, int(planar),
+                    *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
     build.check(lib, rc, f"{name} resize kernel")
     if plan.form == "two_launch":
         rc = norm(dev.index, stream, out.data_ptr(), n * 3, oh * ow, *have, *stats)
@@ -603,4 +634,36 @@ def preprocess_fused_nv_batch(
     out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, is_nv12=is_nv12,
                                           to_rgb=to_rgb, **kwargs)
     config.record_kernel("preprocess_fused_nv_torch")
+    return out
+
+
+def preprocess_fused_planes(planes, out_size, *, interp="linear", mean=None, stddev=None,
+                            normalize=True):
+    """Resize → u8 truncation → normalize over (N, 3, h, w) u8 planes (the
+    affine warp's output), the whole batch in one call: BASELINE config
+    5's tail.
+
+    ``out_size`` is (w, h); ``interp``, ``mean``, ``stddev`` and
+    ``normalize`` as in ``preprocess_fused_batch``.  Returns (N, 3, oh, ow)
+    f32 on the planes' device.  The resize takes the vertical pass first,
+    as the fused kernels do; the chain's ``resize`` takes the pass order
+    that costs fewer multiply-adds, so a value on the truncation boundary
+    may come out one LSB apart from the chain's.
+
+    A CUDA tensor (contiguous) launches the kernel, counted as
+    ``"preprocess_fused_planar"``, or raises; a CPU tensor runs the plain
+    version, counted as ``"preprocess_fused_planar_torch"``.  Raises
+    ValueError for inputs the kernel does not take (not (N, 3, h, w) u8, an
+    interpolation other than linear, cubic or nearest)."""
+    kwargs = dict(mean=mean, stddev=stddev, normalize=normalize, interp=interp)
+    if planes.device.type == "cuda":
+        geom = _planes_geometry(planes, out_size, interp)
+        plan = _plan(geom, "planar", card_limits(planes.device.index), normalize, mean, stddev,
+                     True)
+        return _launch(planes, geom, None, None, trunc_u8=True, name="preprocess_fused_planar",
+                       plan=plan, planar=True, **kwargs)
+    if planes.device.type != "cpu":
+        raise ValueError(f"no fused planar preprocess route for device {planes.device}")
+    out = preprocess_fused_planes_torch(planes, out_size, **kwargs)
+    config.record_kernel("preprocess_fused_planar_torch")
     return out

@@ -9,38 +9,20 @@ The correlation core ``corr`` goes through the correlation kernel's
 wrapper (``ops/cuda/match_template.py``: the CUDA kernel on a CUDA tensor,
 its plain version ``conv2d`` in f32 on a CPU tensor) under the ``auto``
 backend, and runs the plain version under ``torch``.  The windowed sums
-the SQDIFF / NORMED / CCOEFF families need are separable: two f32
-ones-band matrix products (``_box_sum``), whose bands are cached on the
-device.  Results stay on the device: nothing here reads a value back.
+the SQDIFF / NORMED / CCOEFF families need (the window sums of Σ_c x² and,
+for TM_CCOEFF_NORMED, of each channel) go the same way through the
+window-sum kernel's wrapper (``ops/cuda/window_sum.py``: one launch a
+call on the card, both sums at once; its plain version is the reference's
+two f32 ones-band matrix products).  Results stay on the device: nothing
+here reads a value back.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import config
-from ..core.device_tables import stream_cached
 from ..core.image import Image, as_image
 from ..core.types import Layout, MatchMode
-
-
-@stream_cached(maxsize=128)
-def _ones_band(n_in: int, taps: int, device: torch.device) -> torch.Tensor:
-    """(n_in - taps + 1, n_in) band-of-ones windowed-sum matrix on
-    ``device``, made once for each CUDA stream (``core/device_tables.py``)."""
-    n_out = n_in - taps + 1
-    w = np.zeros((n_out, n_in), np.float32)
-    for o in range(n_out):
-        w[o, o : o + taps] = 1.0
-    return torch.from_numpy(w).to(device)
-
-
-def _box_sum(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
-    """Sliding-window (th, tw) sum over the trailing (H, W) axes of ``x``
-    → (..., H-th+1, W-tw+1), as two f32 ones-band products."""
-    wv = _ones_band(x.shape[-2], th, x.device)
-    wx = _ones_band(x.shape[-1], tw, x.device)
-    return torch.matmul(torch.matmul(wv, x), wx.T)
 
 
 def _nchw(img: Image) -> torch.Tensor:
@@ -63,6 +45,17 @@ def corr(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return corr_planes_torch(x[0], k[0])
 
 
+def window_sums(x: torch.Tensor, th: int, tw: int, *, sums: bool = False):
+    """(sq, sums) of x (1, C, H, W) f32 over th × tw windows: the window
+    sums of Σ_c x² (H-th+1, W-tw+1) and, with ``sums``, the per-channel
+    window sums (C, H-th+1, W-tw+1), else None."""
+    from .cuda.window_sum import window_sums as kernel
+    from .cuda.window_sum import window_sums_torch
+
+    fn = kernel if config.use_fused() else window_sums_torch
+    return fn(x[0], th, tw, sq=True, sums=sums)
+
+
 def match_template(src, target, method: MatchMode | int) -> Image:
     """Parity: ``va_cv::match_template`` (cv.h:218-219).  Returns the
     (H-th+1, W-tw+1) float32 response map as an ``Image``."""
@@ -76,13 +69,13 @@ def match_template(src, target, method: MatchMode | int) -> Image:
         num = corr(x, k)
         if method == MatchMode.TM_CCORR:
             return Image(num, Layout.HWC)
-        wnd2 = _box_sum(torch.sum(x[0] * x[0], dim=0), th, tw)
+        wnd2, _ = window_sums(x, th, tw)
         denom = torch.sqrt(wnd2 * torch.sum(k * k))
         return Image(_normed_div(num, denom, sqdiff=False), Layout.HWC)
 
     if method in (MatchMode.TM_SQDIFF, MatchMode.TM_SQDIFF_NORMED):
         cc = corr(x, k)
-        wnd2 = _box_sum(torch.sum(x[0] * x[0], dim=0), th, tw)
+        wnd2, _ = window_sums(x, th, tw)
         t2 = torch.sum(k * k)
         num = wnd2 - 2.0 * cc + t2
         if method == MatchMode.TM_SQDIFF:
@@ -96,8 +89,7 @@ def match_template(src, target, method: MatchMode | int) -> Image:
     if method == MatchMode.TM_CCOEFF:
         return Image(num, Layout.HWC)
     # Window variance summed over channels: Σ_c [Σw x² − (Σw x)²/n].
-    wnd2 = _box_sum(torch.sum(x[0] * x[0], dim=0), th, tw)
-    wnd1 = _box_sum(x[0], th, tw)  # (C, H', W')
+    wnd2, wnd1 = window_sums(x, th, tw, sums=True)  # (H', W'), (C, H', W')
     wnd_var = wnd2 - torch.sum(wnd1 * wnd1, dim=0) / n
     denom = torch.sqrt(torch.clamp(wnd_var, min=0.0) * torch.sum(kc * kc))
     return Image(_normed_div(num, denom, sqdiff=False), Layout.HWC)
