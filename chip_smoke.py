@@ -39,7 +39,11 @@ Phases, each printed as it runs:
    seeded fuzz matrices (rotate, scale, flip, overshoot past both edges)
    at sizes 1x1 to 360x640, every case through the kernel's three paths
    (staged, direct, edge) and bit-exact for u8 and f32, and the flags
-   through ``warp_affine``; the correlation kernel
+   through ``warp_affine``; the warp reading config 5's crop at a device
+   top (``row0``/``rows``: the uncut frames, tops inside, at 0, at the
+   last start, negative and past the end, u8 and f32, HWC view and planes,
+   bit for bit against the plain version on the cut planes, one launch a
+   call); the correlation kernel
    against ``conv2d`` (TF32 off), within 1e-5 of the largest response, at
    seven shapes (the channel split, an HWC-strided image, outputs that are
    no multiple of the tile, 1x1 to 65x65 templates); the fused kernel on
@@ -49,10 +53,11 @@ Phases, each printed as it runs:
    bit or, where cuBLAS orders the plain version's sums otherwise, 1 LSB
    apart on the truncation step; self statistics bit for bit their integer
    statistics); the
-   window-sum kernel against the ones-band products (720p x 48², an HWC
-   image, and odd shapes; within 1e-5 of the largest sum, u8 per-channel
-   sums bit for bit) and all six match modes at 720p x 48² against the
-   plain chain; the tensor-core probe
+   window-sum kernel against the ones-band products (720p x 48²: an HWC
+   u8-valued image, random f32 planes, flat and low-variance images HWC
+   and planar; and odd shapes; within 1e-5 of the largest sum, u8
+   per-channel sums bit for bit) and all six match modes at 720p x 48²
+   against the plain chain; the tensor-core probe
    at every shape of benchmarks/probe_i8.py (bf16 and int8,
    96x128x2048x64, the int8 K sweep, 1024^3x32), the split-reps path and
    ragged tile edges, bit-exact on the probe's integer operands and the
@@ -64,8 +69,9 @@ Phases, each printed as it runs:
    same, on NV21 buffers), the NV chain (a cubic NV config: yuv2bgr and
    normalize once per frame), config 2 (``cvt_color`` → CHW → f32),
    config 5 (``Preprocessor.batch`` on two batches of two 2560x1440
-   frames with a device crop top: one warp launch and one planar tail
-   call per batch, no normalize launch) and the tracking flow of
+   frames with a device crop top: one warp launch, reading the uncut
+   frames at that top, and one planar tail call per batch, no normalize
+   launch) and the tracking flow of
    ``examples/camera_tracking.py`` (six 720x1280 NV21 frames with a
    drifting 48x48 target: ``cvt_color`` → ``match_template`` (one
    window-sum launch a frame) → ``min_max_loc`` → a device top → the
@@ -101,8 +107,11 @@ Phases, each printed as it runs:
    the same function where PyTorch has one (for the window sums, the
    ones-band GEMMs they replaced), and the main paths (event and host
    time); the profiler's device time per call of the correlation,
-   ``conv2d``, ``grid_sample``, the window sums and the GEMMs, and of one
-   tracking frame by kernel (no GEMM left, asserted); the planar tail's
+   ``conv2d``, ``grid_sample``, the window sums (and at strip heights
+   from 16 to 232 rows, HWC and planar) and the GEMMs, of one
+   tracking frame by kernel (no GEMM left, asserted) and of a config-5
+   batch with no top, an int top and a device top by kernel (no gather
+   with a device top, asserted); the planar tail's
    queued device time at 1 and 2 frames; the normalize
    kernel at (3, 1080, 1920) and (3, 224, 224), f32 and u8, and the warp
    kernel at config 5 (linear, cubic, nearest, planar, f32) with the
@@ -122,7 +131,8 @@ Phases, each printed as it runs:
    1, 8, 32 and 128 frames.
 
 ``python3 chip_smoke.py --kernel-times`` runs the device and build phases
-and the normalize, warp, config-5, tracking-frame, yuv2bgr, fused NV and
+and the normalize, warp, config-5 (device, event and host enqueue time with
+an int and a device top), tracking-frame, window-sum, yuv2bgr, fused NV and
 config-4 timings alone, config 4 at 1, 8, 32 and 128 frames; a copy of
 this script in an earlier checkout times that tree's kernels with the same
 code.  ``python3 chip_smoke.py --parent DIR`` runs
@@ -719,6 +729,41 @@ def phase_compare_warp() -> float:
     return 0.0
 
 
+def phase_compare_warp_top() -> float:
+    """The warp kernel reading the crop at a device top (``row0``/``rows``)
+    at config 5's geometry: the uncut (1440-row) frames, the crop's 1368
+    rows from a top inside the frame, at 0, at the last row it may start
+    at, negative and past the end (clamped), u8 and f32, the HWC view and
+    planes, bit for bit against the plain version on the planes cut at the
+    clamped top, one ``warp_affine`` launch a call.  Returns 0.0 (the
+    max-abs error, bit-exact)."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
+
+    left, top, right, bottom = RECT5
+    ch = bottom - top
+    frames = make_batch(BATCH5, H5, W5, seed=75)[:, :, left:right]
+    minv = vt.invert_affine(np.asarray(M5, np.float32))
+    (w_out, h_out) = WARP5
+    for dtype in (torch.uint8, torch.float32):
+        view = frames.permute(0, 3, 1, 2).to(dtype)
+        for layout, planes in (("HWC view", view), ("planes", view.contiguous())):
+            for row0 in (top, 0, H5 - ch, -5, 400):
+                t = torch.tensor(row0, dtype=torch.int32, device="cuda")
+                config.reset_kernel_counts()
+                got = warp_planes_batch(planes, minv, h_out, w_out, row0=t, rows=ch)
+                torch.cuda.synchronize()
+                label = f"warp device top {row0} {str(dtype)[6:]} {layout}"
+                require(config.kernel_count("warp_affine") == 1, f"{label}: not one launch")
+                at = min(max(row0, 0), H5 - ch)
+                want = warp_planes_batch_torch(planes[:, :, at:at + ch], minv, h_out, w_out)
+                require(torch.equal(got, want), f"{label}: differs from the plain version")
+            log(f"[compare] warp device top {str(dtype)[6:]} {layout} {BATCH5}x3x{H5}x"
+                f"{right - left} rows {ch} at tops {top}, 0, {H5 - ch}, -5, 400 (clamped): "
+                f"bit-exact, one launch a call")
+    return 0.0
+
 def phase_compare_corr() -> float:
     """The correlation kernel against conv2d in f32 (TF32 off)."""
     from vacv_tpu_torch.ops.cuda.match_template import corr_planes, corr_planes_torch
@@ -868,8 +913,10 @@ def phase_compare_window_sum() -> float:
     """The window-sum kernel against its plain version (the ones-band
     products, TF32 off): Σ_c x² and the per-channel sums in one launch, at
     the tracking frame's 720p x 48² (the planes of an HWC u8-valued image,
-    as match_template passes them) and odd shapes (1x1, a window wider than
-    one 64-column pass, full-width and full-height windows, random f32),
+    as match_template passes them; random f32 planes; flat and
+    low-variance images, HWC and planar) and odd shapes (1x1, a window
+    wider than one pass of 128 threads, full-width and full-height windows,
+    2 and 5 channels, random f32),
     within 1e-5 of the largest sum, the per-channel sums of u8 values bit
     for bit; then all six modes of match_template at 720p x 48² against the
     plain chain.  Returns the max-abs error of Σ_c x² at 720p x 48²."""
@@ -880,19 +927,24 @@ def phase_compare_window_sum() -> float:
     head = None
     g = torch.Generator(device="cuda")
     g.manual_seed(170)
-    for c, h, w, th, tw, frac, hwc in (
-            (3, TRACK_H, TRACK_W, TARGET, TARGET, False, True),
-            (3, TRACK_H, TRACK_W, TARGET, TARGET, True, False),
-            (1, 1, 1, 1, 1, False, False), (3, 97, 161, 65, 33, False, True),
-            (2, 120, 300, 7, 129, True, False), (1, 40, 300, 40, 300, False, False),
-            (3, 37, 61, 1, 61, False, True), (5, 64, 70, 64, 1, True, False)):
+    full = (3, TRACK_H, TRACK_W, TARGET, TARGET)
+    for c, h, w, th, tw, kind, hwc in (
+            (*full, "u8", True), (*full, "f32", False), (*full, "flat", True),
+            (*full, "flat", False), (*full, "low variance", True), (*full, "low variance", False),
+            (1, 1, 1, 1, 1, "u8", False), (3, 97, 161, 65, 33, "u8", True),
+            (2, 120, 300, 7, 129, "f32", False), (1, 40, 300, 40, 300, "u8", False),
+            (3, 37, 61, 1, 61, "u8", True), (5, 64, 70, 64, 1, "f32", False)):
+        frac = kind == "f32"
         if frac:
             x = torch.rand((c, h, w), generator=g, device="cuda") * 2 - 1
-        else:
-            x = torch.randint(0, 256, (c, h, w), generator=g, device="cuda").to(torch.float32)
+        elif kind == "flat":
+            x = torch.full((c, h, w), 50.0, device="cuda")
+        else:  # u8 values; of low variance: 100 or 101 (test_torch_match_template.py)
+            lo, hi = (100, 102) if kind == "low variance" else (0, 256)
+            x = torch.randint(lo, hi, (c, h, w), generator=g, device="cuda").to(torch.float32)
         if hwc:
             x = x.permute(1, 2, 0).contiguous().permute(2, 0, 1)
-        kind = ("f32" if frac else "u8") + (" HWC" if hwc else "")
+        kind += " HWC" if hwc else ""
         label = f"window sums {c}x{h}x{w} {th}x{tw} {kind}"
         config.reset_kernel_counts()
         sq, sums = window_sums(x, th, tw, sq=True, sums=True)
@@ -1266,6 +1318,7 @@ def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
         preprocess_fused_batch, preprocess_fused_nv_batch,
     )
     from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch
+    from vacv_tpu_torch.ops.cuda.window_sum import window_sums
     from vacv_tpu_torch.ops.cuda.yuv2bgr import nv_to_bgr
 
     out = {}
@@ -1290,6 +1343,8 @@ def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     minv = vt.invert_affine(np.asarray(M5, np.float32))
     (w_out, h_out) = WARP5
     measure("warp config 5 u8 linear CONSTANT", lambda: warp_planes_batch(crop, minv, h_out, w_out))
+    out["host enqueue of the warp, config 5 u8 linear CONSTANT"] = (
+        min(host_us(lambda: warp_planes_batch(crop, minv, h_out, w_out)) for _ in range(2)), 0)
     measure("warp config 5 u8 cubic REFLECT_101", lambda: warp_planes_batch(
         crop, minv, h_out, w_out, interp=vt.INTER_CUBIC, border=vt.BORDER_REFLECT_101))
     measure("warp config 5 u8 nearest REPLICATE", lambda: warp_planes_batch(
@@ -1317,7 +1372,25 @@ def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     out["config 5 normalize share"] = (norm, 0)
     out["config 5 warp share"] = (warp, 0)
     out["config 5 planar tail share"] = (planar, 0)
+    for name, run in (("int top", lambda: pre.batch(batch, top=top)),
+                      ("device top", lambda: pre.batch(batch, top=dev_top))):
+        total, kernels = device_profile(run, 10)
+        out[f"config 5 {name}: device"] = (total, sum(c for _, c in kernels.values()))
+        out[f"config 5 {name}: event"] = (ms_per_call(run, 20) * 1e3, 0)
+        out[f"config 5 {name}: host enqueue"] = (min(host_us(run) for _ in range(2)), 0)
+        log(f"[time] config 5 {name}: device {total:.2f} us, event "
+            f"{out[f'config 5 {name}: event'][0]:.2f} us, host enqueue "
+            f"{out[f'config 5 {name}: host enqueue'][0]:.1f} us a batch of {BATCH5} [{card}]")
     del batch, crop
+    g = torch.Generator(device="cuda")
+    g.manual_seed(73)
+    x = torch.randint(0, 256, (TRACK_H, TRACK_W, 3), generator=g, device="cuda").float()
+    x = x.permute(2, 0, 1)
+    measure(f"window sums (3, {TRACK_H}, {TRACK_W}) HWC {TARGET}x{TARGET}, both sums",
+            lambda: window_sums(x, TARGET, TARGET, sq=True, sums=True))
+    measure(f"window sums (3, {TRACK_H}, {TRACK_W}) HWC {TARGET}x{TARGET}, sq only",
+            lambda: window_sums(x, TARGET, TARGET))
+    del x
     frames, target, _ = tracking_stream(n=2)
     step = tracking_pipeline()
     measure(f"tracking frame {TRACK_H}x{TRACK_W}, {TARGET}x{TARGET} target",
@@ -1788,13 +1861,24 @@ def phase_time_warp_corr(card: str) -> dict:
     batch = make_batch(BATCH5, H5, W5, seed=72)
     dev_top = torch.tensor(top, dtype=torch.int32, device="cuda")
     for name, run in (("static top", lambda: pre.batch(batch)),
+                      ("int top", lambda: pre.batch(batch, top=top)),
                       ("device top", lambda: pre.batch(batch, top=dev_top))):
         run()
         main_ms = ms_per_call(run, 20)
         host = [host_us(run) for _ in range(2)]
+        total, kernels = device_profile(run, 10)
         log(f"[time] config 5 main path Preprocessor.batch ({name}): {main_ms:.4f} ms/batch of "
             f"{BATCH5}, {BATCH5 / main_ms * 1e3:.1f} frames/s; host {host[0]:.1f}, {host[1]:.1f} "
-            f"us/batch (enqueue) [{card}]")
+            f"us/batch (enqueue); profiler device time {total:.2f} us/batch in "
+            f"{sum(c for _, c in kernels.values()):g} launches [{card}]")
+        for k, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
+            log(f"[time]   {t:9.2f} us/batch {100 * t / total:5.1f}%  {c:g} launches/batch  "
+                f"{k[:100]}")
+        if name == "device top":  # the warp reads the crop at the top: no gather copies it
+            gathers = [k for k in kernels if "index" in k.lower() or "gather" in k.lower()]
+            require(not gathers, f"config 5 with a device top ran a gather: {gathers}")
+            log(f"[time]   no gather in a config-5 batch with a device top "
+                f"({len(kernels)} kernels)")
     frames, target, _ = tracking_stream(n=2)
     step = tracking_pipeline()
     step(frames[0], target)
@@ -1828,7 +1912,9 @@ def time_window_sum(card: str) -> dict:
     windows, one launch) against its plain version, its bound and the
     ones-band GEMMs it replaced (the library column): event slopes in
     turns, and the profiler's device time of each."""
-    from vacv_tpu_torch.ops.cuda.window_sum import _box_sum, window_sums, window_sums_torch
+    from vacv_tpu_torch.ops.cuda.window_sum import (
+        _box_sum, _launch, launch_plan, window_sums, window_sums_torch,
+    )
 
     g = torch.Generator(device="cuda")
     g.manual_seed(73)
@@ -1861,6 +1947,16 @@ def time_window_sum(card: str) -> dict:
         f"[{card}]")
     report(f"window sums (3, {TRACK_H}, {TRACK_W}) HWC, {TARGET}x{TARGET}", k_ms, p_ms, kr, pr,
            moved, (1, "frames"), card)
+    # The data behind launch_plan's strip height: the profiler's device
+    # time at each height, HWC and planar, both sums.
+    plan = launch_plan(3, TRACK_H, TRACK_W, TARGET, TARGET, sq=True, sums=True,
+                       sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    planar = x.contiguous()
+    for rows in (16, 32, 48, 56, 64, 88, 136, 232):
+        us = [device_us(lambda: _launch(v, TARGET, TARGET, True, True, rows),
+                        "window_sum_kernel") for v in (x, planar)]
+        log(f"[time] window sums rows={rows}{' (the plan)' if rows == plan.rows else ''}: "
+            f"HWC {fmt_us(us[0])}, planar {fmt_us(us[1])} [{card}]")
     return timing(k_ms, p_ms, max(by_bytes, by_ops),
                   "bytes" if by_bytes >= by_ops else "operations", lib_ms)
 
@@ -2442,7 +2538,7 @@ def main() -> int:
         "preprocess_fused_nv": phase_compare_nv(),
         "yuv2bgr": phase_compare_yuv2bgr(),
         "normalize_fused": phase_compare_normalize(),
-        "warp_affine": phase_compare_warp(),
+        "warp_affine": max(phase_compare_warp(), phase_compare_warp_top()),
         "match_corr": phase_compare_corr(),
         "probe_dot": phase_compare_probe(),
         "preprocess_fused_planar": phase_compare_planar(),

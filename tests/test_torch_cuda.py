@@ -715,6 +715,28 @@ def test_preprocessor_config5_launches_one_warp_per_batch(cuda):
     assert_close(got, want, "self")
 
 
+@pytest.mark.parametrize("top", [36, 0, 72, -5, 400])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32], ids=["u8", "f32"])
+@pytest.mark.parametrize("layout", ["hwc", "planar"])
+def test_warp_kernel_reads_a_device_top(cuda, top, dtype, layout):
+    """``row0``/``rows`` at config 5's geometry: the kernel on the uncut
+    frames against the plain version on the planes cut at the clamped top,
+    bit for bit, one launch a call and no other kernel."""
+    batch = batch_on(cuda, n=2, h=1440, w=2560, seed=17)[:, :, 64:2496]
+    planes = batch.permute(0, 3, 1, 2).to(dtype)
+    if layout == "planar":
+        planes = planes.contiguous()
+    minv = vt.invert_affine(M_ROT)
+    t = torch.tensor(top, dtype=torch.int32, device=cuda)
+    before = config.kernel_count("warp_affine")
+    got = warp_planes_batch(planes, minv, 684, 1216, row0=t, rows=1368)
+    torch.cuda.synchronize()
+    assert config.kernel_count("warp_affine") == before + 1
+    cut = planes[:, :, min(max(top, 0), 72):][:, :, :1368]
+    assert torch.equal(got, warp_planes_batch_torch(cut, minv, 684, 1216))
+    assert torch.equal(got, warp_planes_batch(cut, minv, 684, 1216))
+
+
 # ---- the correlation kernel -----------------------------------------------
 
 def rand_on(device, shape, seed, lo=0, hi=256, frac=False):
@@ -838,6 +860,26 @@ def test_window_sum_kernel_matches_plain_version(cuda, c, h, w, th, tw, layout, 
         assert torch.equal(sums, want_sums)
     assert torch.equal(window_sums(x, th, tw)[0], sq)
     assert torch.equal(window_sums(x, th, tw, sq=False, sums=True)[1], sums)
+
+
+@pytest.mark.parametrize("kind", ["flat", "low variance"])
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_window_sum_kernel_on_flat_and_low_variance_images(cuda, kind, layout):
+    """The tracking frame's 720p x 48^2 on a flat image (every window the
+    same) and a low-variance one (100 or 101): within 1e-5 of the largest
+    sum, the per-channel sums bit for bit."""
+    from vacv_tpu_torch.ops.cuda.window_sum import window_sums, window_sums_torch
+
+    if kind == "flat":
+        x = torch.full((3, 720, 1280), 50.0, device=cuda)
+    else:
+        x = rand_on(cuda, (3, 720, 1280), seed=19, lo=100, hi=102)
+    if layout == "hwc":
+        x = x.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    sq, sums = window_sums(x, 48, 48, sq=True, sums=True)
+    want_sq, want_sums = window_sums_torch(x, 48, 48, sq=True, sums=True)
+    assert (sq - want_sq).abs().max().item() <= 1e-5 * want_sq.abs().max().item()
+    assert torch.equal(sums, want_sums)
 
 
 # ---- the config-5 tail: the fused kernel on planar u8 planes --------------

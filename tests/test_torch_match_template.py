@@ -231,6 +231,53 @@ def test_window_sums_match_jax_box_sum(h, w, th, tw, channels, kind):
             np.testing.assert_array_equal(sums.numpy(), want_sums)
 
 
+# The card's shapes of the window-sum kernel (chip_smoke.py's compare phase
+# and the card tests): the tracking frame, a window wider than one pass of
+# 128 threads, full-width and full-height windows, 2 and 5 channels.
+CARD_WINDOWS = [(3, 720, 1280, 48, 48), (3, 97, 161, 65, 33), (2, 120, 300, 7, 129),
+                (1, 40, 300, 40, 300), (3, 37, 61, 1, 61), (5, 64, 70, 64, 1), (1, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("sq,sums", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("c,h,w,th,tw", [(c, *case) for case in window_cases() for c in (1, 3)]
+                         + CARD_WINDOWS)
+def test_window_sum_launch_plan(c, h, w, th, tw, sq, sums):
+    """The kernel's launch on the host: the strips cover the output, a
+    block's threads walk every column of a pass, the ring and stages fit the
+    card's shared memory, and the passes cover the window and channels."""
+    plan = ws.launch_plan(c, h, w, th, tw, sq=sq, sums=sums)
+    ho, wo = h - th + 1, w - tw + 1
+    assert plan.threads in (128, 256) and ws.TILE_X + plan.kc - 1 <= plan.threads
+    assert 1 <= plan.kr <= th and 1 <= plan.kc <= tw and plan.cn == min(c, 4)
+    nq = int(sq) + (plan.cn if sums else 0)
+    assert plan.smem == ws.window_smem(nq, plan.kr, plan.kc) <= ws.SMEM_BLOCK
+    assert plan.per_sm >= 1 and plan.per_sm * (plan.smem + 1024) <= ws.SMEM_SM
+    assert plan.rows % ws.BATCH == 0 and plan.rows >= ws.BATCH
+    assert (plan.row_tiles - 1) * plan.rows < ho <= plan.row_tiles * plan.rows <= 65535 * plan.rows
+    assert (plan.col_tiles - 1) * ws.TILE_X < wo <= plan.col_tiles * ws.TILE_X
+    assert plan.passes == -(-c // plan.cn) * -(-th // plan.kr) * -(-tw // plan.kc)
+    # The same strips and passes whatever is asked for: the same bits of each sum.
+    both = ws.launch_plan(c, h, w, th, tw, sq=True, sums=True)
+    assert (plan.rows, plan.kr, plan.kc, plan.threads) == (both.rows, both.kr, both.kc,
+                                                           both.threads)
+    if (c, h, w, th, tw) == CARD_WINDOWS[0]:
+        # The tracking frame: one pass, and a block on every SM at once.
+        assert plan.passes == 1 and plan.col_tiles * plan.row_tiles >= 132
+    assert ws.launch_plan(c, h, w, th, tw, sq=sq, sums=sums, rows=13).rows == 16
+
+
+def test_window_sum_plan_constants_are_the_kernels():
+    """The plan's constants and its shared-memory formula are the kernel's."""
+    import re
+
+    src = (ws.build.SRC_DIR / "window_sum.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kTileX"]), int(consts["kBatch"])) == (ws.TILE_X, ws.BATCH)
+    assert "return (ncol + 6) / 8 * 8 + 1;" in src
+    assert ("return 4 * (kr * ncol * e + kBatch * stage_pitch(ncol) * e + "
+            "kBatch * nq * (kTileX + 1));") in src
+    assert ws.window_smem(4, 48, 48) == 4 * (48 * 111 * 4 + 8 * 113 * 4 + 8 * 4 * 65)
+
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: m.name)
 def test_modes_match_jax_at_the_tracking_template(mode):
     """The tracking flow's 48x48 template over a 96x128 u8 image."""

@@ -18,6 +18,7 @@ import vacv_tpu as vc
 import vacv_tpu_torch as vt
 from vacv_tpu import config as jconfig
 from vacv_tpu_torch import config
+from vacv_tpu_torch.ops.crop import dynamic_slice
 from vacv_tpu_torch.ops.cuda import warp_affine as wk
 from vacv_tpu_torch.utils.fuzz import affine_matrices
 from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
@@ -211,6 +212,71 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         warp_planes_batch(planes, minv, 4, 4, interp=vt.INTER_AREA)
     with pytest.raises(ValueError, match="out must be"):
         warp_planes_batch(planes, minv, 4, 4, out=torch.empty((1, 3, 4, 5), dtype=torch.uint8))
+
+
+# ---- a crop read at a top that lies on the device (config 5's moving ROI) ----
+
+ROWS = 30  # the crop's rows in frames of H = 40
+TOPS = {"inside": 4, "zero": 0, "last": H - ROWS, "negative": -3, "past the end": 25}
+
+
+@pytest.mark.parametrize("top", list(TOPS))
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32], ids=["u8", "f32"])
+@pytest.mark.parametrize("layout", ["hwc", "planar"])
+def test_device_top_warps_the_sliced_planes(top, dtype, layout):
+    """``row0``/``rows``: the same as warping the planes cut by
+    ``dynamic_slice`` at the top taken as 0 when negative (so clamped to
+    ``[0, H - rows]``): one warp a call, u8 and f32, an HWC view and planes."""
+    batch = torch.from_numpy(image(20, shape=(2, H, W, 3))).to(dtype)
+    planes = batch.permute(0, 3, 1, 2)[..., 3:51]
+    if layout == "planar":
+        planes = planes.contiguous()
+    minv = vt.invert_affine(MATRICES["rotation"])
+    t = torch.tensor(TOPS[top], dtype=torch.int32)
+    p0 = config.kernel_count("warp_affine_torch")
+    got = warp_planes_batch(planes, minv, 36, 48, row0=t, rows=ROWS)
+    assert config.kernel_count("warp_affine_torch") == p0 + 1
+    cut = dynamic_slice(planes, 2, max(TOPS[top], 0), ROWS)
+    assert cut.shape[2] == ROWS and cut.data_ptr() == planes[:, :, min(max(TOPS[top], 0),
+                                                                        H - ROWS)].data_ptr()
+    np.testing.assert_array_equal(got.numpy(), warp_planes_batch_torch(cut, minv, 36, 48).numpy())
+    same = warp_planes_batch_torch(planes, minv, 36, 48, row0=t, rows=ROWS)
+    np.testing.assert_array_equal(same.numpy(), got.numpy())
+
+
+def test_device_top_checks():
+    """What the wrapper refuses of a top and a crop height."""
+    planes = torch.zeros((1, 3, 8, 8), dtype=torch.uint8)
+    minv = np.eye(2, 3, dtype=np.float32)
+    with pytest.raises(ValueError, match="together"):
+        warp_planes_batch(planes, minv, 4, 4, row0=torch.tensor(1))
+    with pytest.raises(ValueError, match="integer"):
+        warp_planes_batch(planes, minv, 4, 4, row0=torch.tensor(1.0), rows=4)
+    with pytest.raises(ValueError, match="integer"):
+        warp_planes_batch(planes, minv, 4, 4, row0=torch.tensor([1, 2]), rows=4)
+    with pytest.raises(ValueError, match="integer tensor"):
+        warp_planes_batch(planes, minv, 4, 4, row0=3, rows=4)
+    with pytest.raises(ValueError, match="does not fit"):
+        warp_planes_batch(planes, minv, 4, 4, row0=torch.tensor(0), rows=9)
+    ramp = torch.arange(8, dtype=torch.uint8).reshape(1, 1, 8, 1).expand(1, 3, 8, 8)
+    got = warp_planes_batch(ramp, minv, 4, 4, row0=torch.tensor(3), rows=4)
+    assert (got[0, :, :, 0] == torch.tensor([3, 4, 5, 6], dtype=torch.uint8)).all()
+
+
+@pytest.mark.parametrize("interp", INTERPS, ids=lambda m: m.name)
+@pytest.mark.parametrize("top", [0, 17, 36, -5, 500])
+def test_tile_paths_at_an_int_top(interp, top):
+    """``tile_paths`` with an int ``row0`` is ``tile_paths`` on the cut
+    view (clamped as the kernel clamps), for HWC u8 and f32 views and
+    planes, whose base addresses then move by the top's rows."""
+    batch = torch.zeros((2, 180, 320, 3), dtype=torch.uint8)
+    minv = vt.invert_affine(np.array([[0.9, 0.03, 4.0], [-0.03, 0.9, 2.5]], np.float32))
+    for src in (batch.permute(0, 3, 1, 2)[..., 8:312], batch.permute(0, 3, 1, 2).contiguous(),
+                batch.float().permute(0, 3, 1, 2)):
+        cut = src.narrow(2, min(max(top, 0), 180 - 144), 144)
+        want = wk.tile_paths(cut, minv, 120, 250, interp)
+        assert wk.tile_paths(src, minv, 120, 250, interp, row0=top, rows=144) == want
+        assert sum(want.values()) == 2 * 8 * 4
 
 
 # ---- the kernel's tile decision on the host (the CUDA launch cannot run here) ----

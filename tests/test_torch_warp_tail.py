@@ -169,19 +169,29 @@ def test_planar_tail_at_the_warps_own_size(interp, stats):
             np.testing.assert_array_equal(got, pre.batch(batch).numpy())
 
 
-@pytest.mark.parametrize("top", [1, 8])
-def test_planar_tail_runtime_top(top):
+@pytest.mark.parametrize("top", [1, 8, 0, -3, 30])
+def test_planar_tail_runtime_top(top, monkeypatch):
     """``batch(top=...)`` moves the crop before the warp on the planar
-    route: equal to a JAX Preprocessor built with the moved rect, for an
-    int and a tensor top."""
+    route: equal to a JAX Preprocessor built with the moved rect (the top
+    clamped to the frame, a negative one to 0), for an int and a tensor
+    top.  A tensor top goes to the warp with the uncut frames: one warp
+    call, and no ``dynamic_slice`` on that route."""
+    import vacv_tpu_torch.models.pipeline as pipeline
+
     cfg, _ = configs(**BASE)
-    _, moved = configs(**dict(BASE, crop_rect=(RECT5[0], top, RECT5[2], top + 136)))
+    clamped = min(max(top, 0), 144 - 136)
+    _, moved = configs(**dict(BASE, crop_rect=(RECT5[0], clamped, RECT5[2], clamped + 136)))
     batch = frames(37)
     want = jax_batch(moved, batch, "jnp")
     pre = Preprocessor(cfg)
     for t in (top, torch.tensor(top, dtype=torch.int32)):
+        if isinstance(t, torch.Tensor):
+            def no_gather(*args, **kwargs):
+                raise AssertionError("dynamic_slice on the device-top route")
+            monkeypatch.setattr(pipeline, "dynamic_slice", no_gather)
+        w0 = config.kernel_count("warp_affine_torch")
         got, calls = planar_calls(lambda: pre.batch(batch, top=t).numpy())
-        assert calls == [1, 0]
+        assert calls == [1, 0] and config.kernel_count("warp_affine_torch") == w0 + 1
         assert_tail_close(got, want, True)
 
 

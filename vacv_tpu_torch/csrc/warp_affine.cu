@@ -15,25 +15,30 @@ extern "C" {
 // matrix m0..m5.  interp: 0 nearest, 1 linear, 2 cubic; border: 0 constant,
 // 1 replicate, 2 reflect, 3 wrap, 4 reflect_101; vacv: the skip-edge mask
 // (linear).  mode: 0 picks each tile's path (staged, direct, edge), 1 never
-// stages, 2 runs every tile through the per-tap border rule.  The caller
-// keeps n * ceil(c / 4) <= 65535 and ceil(h_out / 16) <= 65535.
-// Returns a cudaError_t (0 on success).
+// stages, 2 runs every tile through the per-tap border rule.  row0_ptr:
+// null, or a device int, the top of the h rows to warp in frames of
+// rows_full rows (clamped to [0, rows_full - h]); `src` is then the
+// frames' row 0.  The caller keeps n * ceil(c / 4) <= 65535 and
+// ceil(h_out / 16) <= 65535.  Returns a cudaError_t (0 on success).
 int vacv_warp_affine(int device, void* stream, const void* src, int is_u8, int n, int c,
                      int h, int w, long long sn, long long sc, long long sy, long long sx,
                      void* out, int h_out, int w_out, long long on, long long oc,
                      long long oy, long long ox, float m0, float m1, float m2, float m3,
                      float m4, float m5, int interp, int border, float border_value,
-                     int vacv, int mode) {
+                     int vacv, int mode, const void* row0_ptr, int rows_full) {
   cudaGetLastError();  // clear a stale error of an earlier call
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (sn < 0 || sc < 0 || sy < 0 || sx < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (sn < 0 || sc < 0 || sy < 0 || sx < 0 || (row0_ptr != nullptr && rows_full < h))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.src = src;
   p.sn = sn;
   p.sc = sc;
   p.sy = sy;
   p.sx = sx;
+  p.row0_ptr = static_cast<const int*>(row0_ptr);
+  p.rows_full = rows_full;
   p.out = out;
   p.on = on;
   p.oc = oc;
@@ -57,7 +62,9 @@ int vacv_warp_affine(int device, void* stream, const void* src, int is_u8, int n
   const int es = is_u8 ? 1 : 4;
   p.layout = sx == 1 ? kPlanar : (sc == 1 && sx >= c ? kHwc : kStrided);
   p.vec = (sy * es) % 16 == 0 && (p.layout == kHwc || (sc * es) % 16 == 0);
-  p.idx32 = (h - 1) * sy + (w - 1) * sx + (c - 1) * sc < 2147483647LL;
+  // On the whole frame's extent: a block's offsets from a moved top stay inside it.
+  p.idx32 = ((row0_ptr != nullptr ? rows_full : h) - 1) * sy + (w - 1) * sx + (c - 1) * sc <
+            2147483647LL;
   p.fast_ok = h < kFastLimit && w < kFastLimit;
   p.mode = mode;
   const dim3 grid((w_out + kTileX - 1) / kTileX, (h_out + kTileY - 1) / kTileY, n * p.groups);

@@ -11,7 +11,9 @@
 // source.  Here each thread simply loads its taps.
 //
 // What it computes, for N frames of C planes (any strides: CHW planes, an
-// HWC frame, or a crop view of either, with no transpose, pad or copy):
+// HWC frame, or a crop view of either, with no transpose, pad or copy; or
+// h rows of a taller frame from a top that lies on the device, read once by
+// each block, so that a moving crop needs no gather):
 // for each output pixel (dx, dy) the source coordinate
 //   fx = ((m0 dx) + (m1 dy)) + m2,  fy = ((m3 dx) + (m4 dy)) + m5
 // in f32, then
@@ -104,6 +106,8 @@ enum { kAuto = 0, kNoStage = 1, kEdgeOnly = 2 };
 struct Params {
   const void* src;
   int64_t sn, sc, sy, sx;  // source strides, in elements
+  const int* row0_ptr;     // null, or the device top of an h-row crop of rows_full rows
+  int rows_full;
   void* out;
   int64_t on, oc, oy, ox;  // output strides, in elements
   int c, h, w, h_out, w_out, groups;
@@ -459,6 +463,8 @@ __device__ void plan_tile(const Params& p, Tile& t) {
   const int c0 = (blockIdx.z - frame * p.groups) * kGroup;
   const int cn = min(kGroup, p.c - c0);
   const T* src = static_cast<const T*>(p.src) + frame * p.sn + c0 * p.sc;
+  if (p.row0_ptr != nullptr)  // the crop's top, clamped so that it stays in the frame
+    src += static_cast<int64_t>(min(max(__ldg(p.row0_ptr), 0), p.rows_full - p.h)) * p.sy;
   t.src = src;
   t.out = static_cast<T*>(p.out) + frame * p.on + c0 * p.oc;
   t.cn = cn;

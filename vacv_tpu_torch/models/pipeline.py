@@ -8,7 +8,8 @@ is one fused call (``ops/cuda/preprocess.py``): over u8 BGR frames, or,
 with an NV ``color_code`` and bilinear resize, over stacked NV21/NV12
 camera buffers with the decode inside the kernel.  A config with a
 ``warp`` (BASELINE config 5) crops the batch, warps all its frames in
-one call of the warp kernel's wrapper (``ops/cuda/warp_affine.py``), then
+one call of the warp kernel's wrapper (``ops/cuda/warp_affine.py``; a crop
+top on the device goes to the kernel with the uncut frames), then
 runs the tail (resize → layout → f32 → normalize): on three u8 planes
 with a linear, cubic or nearest resize to CHW, as one call of the fused
 kernel over the whole warped batch (``preprocess_fused_planes``), else
@@ -32,7 +33,7 @@ import torch
 from .. import config
 from ..core.image import Image, as_tensor
 from ..core.types import ColorCode, InterMode, Layout, VRect
-from ..ops.crop import crop, crop_dynamic, dynamic_slice
+from ..ops.crop import crop, crop_dynamic, dynamic_slice, static_start
 from ..ops.cuda.preprocess import (
     INTERP_MODES, preprocess_fused_batch, preprocess_fused_nv_batch, preprocess_fused_planes,
 )
@@ -177,7 +178,8 @@ class Preprocessor:
     def _crop_args(self, top):
         """(left, top, cw, ch, static) of the crop, or None for no crop:
         the rect's own top when ``top`` is None (``static``), else the
-        runtime ``top`` clamped below at 0, as the fused route clamps it."""
+        runtime ``top``: an int clamped below at 0, as the fused route
+        clamps it, a tensor as given (its users clamp it)."""
         if self.cfg.crop_rect is None:
             return None
         left, top0, cw, ch = self.cfg.crop_rect.int_bounds()
@@ -185,7 +187,8 @@ class Preprocessor:
             raise ValueError(f"empty crop rect {self.cfg.crop_rect}")
         if top is None:
             return left, top0, cw, ch, True
-        top = torch.clamp(top, min=0) if isinstance(top, torch.Tensor) else max(int(top), 0)
+        if not isinstance(top, torch.Tensor):
+            top = max(int(top), 0)
         return left, top, cw, ch, False
 
     def _tail(self, img: Image):
@@ -212,7 +215,13 @@ class Preprocessor:
             img = _decode_color(img, cfg.color_code)
         args = self._crop_args(top)
         if args is not None:
-            img = crop(img, cfg.crop_rect) if args[-1] else crop_dynamic(img, *args[:-1])
+            left, top, cw, ch, static = args
+            if static:
+                img = crop(img, cfg.crop_rect)
+            else:
+                if isinstance(top, torch.Tensor):
+                    top = torch.clamp(top, min=0)
+                img = crop_dynamic(img, left, top, cw, ch)
         if cfg.warp is not None:
             m, dsize = cfg.warp
             img = warp_affine(img.change_layout(Layout.CHW), [list(r) for r in m], tuple(dsize))
@@ -235,7 +244,9 @@ class Preprocessor:
         planes in one call (INTER_LINEAR, BORDER_CONSTANT, border value 0,
         as the reference's ``warp_affine(img, m, dsize)``), then the tail:
         one fused call over the warped batch (``_planar_tail``), else the
-        per-frame ``_tail``."""
+        per-frame ``_tail``.  A tensor ``top`` goes to the warp as its
+        ``row0`` with the uncut rows: the kernel reads the crop at that top
+        and clamps it, so no gather copies the crop."""
         cfg = self.cfg
         if cfg.color_code is not None:
             planes = torch.stack([_decode_color(Image(f, Layout.HWC), cfg.color_code)
@@ -247,15 +258,19 @@ class Preprocessor:
         if gray:
             planes = planes[:, None]
         args = self._crop_args(top)
+        row0 = rows = None
         if args is not None:
             left, top, cw, ch, static = args
             if static:
                 planes = planes[:, :, top : top + ch, left : left + cw]
+            elif isinstance(top, torch.Tensor):
+                planes = planes.narrow(3, static_start(left, planes.shape[3], cw), cw)
+                row0, rows = top, ch
             else:
                 planes = dynamic_slice(dynamic_slice(planes, 2, top, ch), 3, left, cw)
         m, (w, h) = cfg.warp
         minv = invert_affine(np.asarray([list(r) for r in m], dtype=np.float32))
-        out = warp_planes_batch(planes, minv, int(h), int(w))
+        out = warp_planes_batch(planes, minv, int(h), int(w), row0=row0, rows=rows)
         interp = self._planar_tail(out)
         if interp is not None:
             return preprocess_fused_planes(out, cfg.out_size, interp=interp, mean=cfg.mean,

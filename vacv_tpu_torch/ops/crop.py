@@ -36,6 +36,14 @@ def crop(src, rect: VRect) -> Image:
     return img.with_data(out)
 
 
+def static_start(start: int, n: int, size: int) -> int:
+    """An int start of ``size`` entries in ``n`` under ``lax.dynamic_slice``'s
+    rules: a negative start counts from the end once, then it is clamped to
+    ``[0, n - size]``."""
+    start = start + n if start < 0 else start
+    return min(max(start, 0), n - size)
+
+
 def dynamic_slice(x: torch.Tensor, dim: int, start, size: int) -> torch.Tensor:
     """``size`` entries of ``x`` along ``dim`` from ``start``, with
     ``lax.dynamic_slice``'s index rules: a negative start counts from
@@ -48,9 +56,7 @@ def dynamic_slice(x: torch.Tensor, dim: int, start, size: int) -> torch.Tensor:
     if hi < 0:
         raise ValueError(f"slice of {size} exceeds dim {dim} of {tuple(x.shape)}")
     if not isinstance(start, torch.Tensor):
-        start = int(start)
-        start = start + n if start < 0 else start
-        return x.narrow(dim, min(max(start, 0), hi), size)
+        return x.narrow(dim, static_start(int(start), n, size), size)
     start = start.to(device=x.device, dtype=torch.int64).reshape(())
     start = torch.clamp(torch.where(start < 0, start + n, start), 0, hi)
     idx = torch.arange(size, device=x.device) + start

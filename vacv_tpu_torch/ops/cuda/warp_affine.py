@@ -15,6 +15,16 @@ f32 directly, other float types through an f32 copy and
 narrowed on write-out.  On a CPU tensor it runs the plain version
 ``warp_planes_batch_torch``, counted as ``"warp_affine_torch"``.
 
+``row0``/``rows`` warp a crop of ``rows`` rows whose top is a 0-d integer
+tensor (a moving ROI that lies on the device): the kernel is given the
+uncut frames and reads the top itself, once a block, clamped to
+``[0, H - rows]`` (``dynamic_slice``'s clamp after a negative top is taken
+as 0), so no gather copies the crop and the host never waits.  Every path
+keeps its alignment for any top: the staged copy works out its 16-byte
+skew from each tile's own first address, and takes 16-byte copies only
+where the row (and plane) strides keep them aligned, element copies
+otherwise, which do not depend on the base address.
+
 The kernel works in 64 x 16 output tiles and decides per tile how to read
 the source: from a copy of the tile's source box in shared memory
 ("staged": cubic only), straight from memory without the border rule
@@ -34,6 +44,7 @@ import torch
 
 from ... import config
 from ...core.types import BorderMode, InterMode
+from ..crop import dynamic_slice
 from ..warp_affine import INTERPS, warp_epilogue, warp_planes_torch
 from . import build
 
@@ -60,6 +71,7 @@ def _entry_points():
         p, i, i, ll, ll, ll, ll,      # out, h_out, w_out, output strides n, c, y, x
         f, f, f, f, f, f,             # the inverse matrix
         i, i, f, i, i,                # interp, border, border value, vacv, mode
+        p, i,                         # the device top (or null), the frames' rows
     ]
     return lib, fn
 
@@ -98,11 +110,14 @@ def tile_boxes(minv, h_out: int, w_out: int, interp, h: int, w: int):
 
 
 def tile_paths(planes, minv, h_out: int, w_out: int, interp=InterMode.INTER_LINEAR,
-               path: str = "auto") -> dict:
+               path: str = "auto", row0: int | None = None, rows: int | None = None) -> dict:
     """How many of a call's tiles (over frames and channel groups) take
     each of the kernel's paths: ``{"staged": n, "direct": n, "edge": n}``,
     from the planes' shape, strides, type and address as the kernel
-    decides it."""
+    decides it; with an int ``row0``, for the ``rows`` rows from that top,
+    clamped as the kernel clamps a device top."""
+    if row0 is not None:
+        planes = planes.narrow(2, min(max(int(row0), 0), planes.shape[2] - rows), rows)
     n, c, h, w = planes.shape
     sn, sc, sy, sx = planes.stride()
     es = planes.element_size()
@@ -132,9 +147,16 @@ def tile_paths(planes, minv, h_out: int, w_out: int, interp=InterMode.INTER_LINE
     return counts
 
 
-def _check(planes, interp, border):
+def _check(planes, interp, border, row0=None, rows=None):
     if planes.ndim != 4:
         raise ValueError(f"warp needs (N, C, h, w) planes, got {tuple(planes.shape)}")
+    if (row0 is None) != (rows is None):
+        raise ValueError("give row0 and rows together")
+    if row0 is not None and (not isinstance(row0, torch.Tensor) or row0.numel() != 1
+                             or row0.is_floating_point() or row0.is_complex()):
+        raise ValueError("runtime top must be a 1-element integer tensor")
+    if rows is not None and not 1 <= int(rows) <= planes.shape[2]:
+        raise ValueError(f"a crop of {rows} rows does not fit planes {tuple(planes.shape)}")
     if InterMode(interp) not in INTERPS:
         raise ValueError(f"warp interpolation must be one of {[m.name for m in INTERPS]}, "
                          f"got {interp!r}")
@@ -144,22 +166,26 @@ def _check(planes, interp, border):
         raise ValueError(f"warp takes uint8 or a float type, got {planes.dtype}")
 
 
-def warp_planes_batch_torch(planes, minv, h_out: int, w_out: int, *,
+def warp_planes_batch_torch(planes, minv, h_out: int, w_out: int, *, row0=None, rows=None,
                             interp=InterMode.INTER_LINEAR,
                             border=BorderMode.BORDER_CONSTANT, border_value=0.0,
                             edge_mode="opencv"):
-    """Plain PyTorch version of the kernel: ``warp_planes_torch`` on the
-    planes in f32, then the epilogue to the input's type.  Runs on any
-    device."""
-    _check(planes, interp, border)
+    """Plain PyTorch version of the kernel: the crop (``row0``/``rows``,
+    as ``warp_planes_batch``), ``warp_planes_torch`` on the planes in f32,
+    then the epilogue to the input's type.  Runs on any device."""
+    _check(planes, interp, border, row0, rows)
+    if row0 is not None:  # a gather, the top taken as 0 when negative
+        planes = dynamic_slice(planes, 2, torch.clamp(row0.reshape(()), min=0), rows)
     res = warp_planes_torch(planes.to(torch.float32), minv, h_out, w_out,
                             u8=planes.dtype == torch.uint8, border_value=border_value,
                             edge_mode=edge_mode, border=border, interp=interp)
     return warp_epilogue(res, interp, planes.dtype)
 
 
-def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out, path="auto"):
-    n, c, h, w = planes.shape
+def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out, path="auto",
+            row0=None, rows=None):
+    n, c, h_full, w = planes.shape
+    h = h_full if rows is None else int(rows)
     lib, fn = _entry_points()
     if path not in PATHS:
         raise ValueError(f"warp path must be one of {PATHS}, got {path!r}")
@@ -174,32 +200,42 @@ def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out, path="aut
         if out.numel():
             raise ValueError("warp of an empty image")
         return out
+    top = None
+    if row0 is not None:
+        # The kernel reads the top from the device and clamps it there.
+        top = row0.reshape(()).to(device=dev, dtype=torch.int32)
     m = np.asarray(minv, np.float32).reshape(6)
     rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
             planes.data_ptr(), int(planes.dtype == torch.uint8), n, c, h, w, *planes.stride(),
             out.data_ptr(), h_out, w_out, *out.stride(),
             *(float(v) for v in m), int(InterMode(interp)), int(BorderMode(border)),
-            float(bv), int(vacv), PATHS.index(path))
+            float(bv), int(vacv), PATHS.index(path), None if top is None else top.data_ptr(),
+            h_full)
     build.check(lib, rc, "warp kernel")
     config.record_kernel("warp_affine")
     return out
 
 
-def warp_planes_batch(planes, minv, h_out: int, w_out: int, *,
+def warp_planes_batch(planes, minv, h_out: int, w_out: int, *, row0=None, rows=None,
                       interp=InterMode.INTER_LINEAR, border=BorderMode.BORDER_CONSTANT,
                       border_value=0.0, edge_mode="opencv", out=None, path="auto"):
     """Warp (N, C, h, w) planes of any strides with the 2×3 inverse matrix
     ``minv`` into (N, C, h_out, w_out) of the planes' type.
 
-    ``out``, if given, is written in place (any strides, e.g. a permuted
-    view of an HWC tensor) and returned.  ``path`` (CUDA only) holds the
+    ``row0`` and ``rows`` warp the ``rows`` rows of (N, C, H, w) planes from
+    the top ``row0`` (a 1-element integer tensor), clamped to ``[0, H -
+    rows]`` after a negative top is taken as 0; on the card the top stays
+    on the device (module docstring).  ``out``, if given, is written in
+    place (any strides, e.g. a permuted view of an HWC tensor) and
+    returned.  ``path`` (CUDA only) holds the
     kernel's paths to each other: "auto" lets each tile choose, "no_stage"
     never copies a tile's source box into shared memory, "edge_only" runs
     every tile through the per-tap border rule.  Raises ValueError for
     inputs the kernel does not take (not rank 4, an integer type other than
     uint8, an interpolation other than linear/nearest/cubic, a border other
-    than CONSTANT/REPLICATE/REFLECT/WRAP/REFLECT_101, an unknown path)."""
-    _check(planes, interp, border)
+    than CONSTANT/REPLICATE/REFLECT/WRAP/REFLECT_101, an unknown path, a
+    top that is not one integer, a crop taller than the planes)."""
+    _check(planes, interp, border, row0, rows)
     shape = planes.shape[:2] + (h_out, w_out)
     if out is None:
         out = torch.empty(shape, dtype=planes.dtype, device=planes.device)
@@ -209,15 +245,16 @@ def warp_planes_batch(planes, minv, h_out: int, w_out: int, *,
     if planes.device.type == "cuda":
         if planes.dtype in (torch.uint8, torch.float32):
             return _launch(planes, minv, h_out, w_out, interp, border, border_value, vacv, out,
-                           path)
+                           path, row0, rows)
         # f16 / bf16 / f64: warped in f32 and narrowed on write-out.
         wide = torch.empty(shape, dtype=torch.float32, device=planes.device)
         _launch(planes.to(torch.float32), minv, h_out, w_out, interp, border, border_value,
-                vacv, wide, path)
+                vacv, wide, path, row0, rows)
         return out.copy_(wide)
     if planes.device.type != "cpu":
         raise ValueError(f"no warp route for device {planes.device}")
-    out.copy_(warp_planes_batch_torch(planes, minv, h_out, w_out, interp=interp, border=border,
-                                      border_value=border_value, edge_mode=edge_mode))
+    out.copy_(warp_planes_batch_torch(planes, minv, h_out, w_out, row0=row0, rows=rows,
+                                      interp=interp, border=border, border_value=border_value,
+                                      edge_mode=edge_mode))
     config.record_kernel("warp_affine_torch")
     return out

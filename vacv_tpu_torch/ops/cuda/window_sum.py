@@ -17,12 +17,15 @@ before this kernel.
 On a CUDA tensor ``window_sums`` launches the hand-written kernel
 (``vacv_tpu_torch/csrc/window_sum.cu``) once, whatever it is asked for,
 counted as ``"window_sum"``, or raises; on a CPU tensor it runs the plain
-version, counted as ``"window_sum_torch"``.
+version, counted as ``"window_sum_torch"``.  ``launch_plan`` is the
+kernel's launch on the host: its strips, threads, passes and shared
+memory, so that a CPU test can hold each shape to the card's limits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -30,6 +33,78 @@ import torch
 from ... import config
 from ...core.device_tables import stream_cached, stream_key
 from . import build
+
+
+# The kernel's constants (csrc/window_sum.cu: kTileX, kBatch).
+TILE_X, BATCH = 64, 8
+SMEM_BLOCK = 232448  # dynamic shared memory a block may opt into (H100)
+SMEM_SM = 233472     # shared memory of an SM; each block also takes 1 KB
+
+
+@dataclass(frozen=True)
+class WindowPlan:
+    """One launch of the window-sum kernel: grid (``col_tiles``,
+    ``row_tiles``) of ``threads`` threads, each block a strip of 64 output
+    columns and ``rows`` output rows; window rows ``kr`` and columns ``kc``
+    a pass, ``passes`` passes a strip (channel groups of ``cn`` × row
+    chunks × column chunks); ``smem`` bytes of dynamic shared memory, so
+    ``per_sm`` blocks fit on an SM."""
+
+    cn: int
+    threads: int
+    kr: int
+    kc: int
+    rows: int
+    col_tiles: int
+    row_tiles: int
+    passes: int
+    smem: int
+    per_sm: int
+
+
+def _pow2(n: int) -> int:
+    return 1 if n <= 1 else 2 if n <= 2 else 4 if n <= 4 else 8
+
+
+def window_smem(nq: int, kr: int, kc: int) -> int:
+    """The kernel's ``window_smem``: the ring (kr rows of 64 + kc - 1
+    entries), the column sums of 8 rows and the stage of 8 output rows, in
+    bytes, for ``nq`` quantities a pixel."""
+    e, ncol = _pow2(nq), TILE_X + kc - 1
+    pitch = (ncol + 6) // 8 * 8 + 1
+    return 4 * (kr * ncol * e + BATCH * pitch * e + BATCH * nq * (TILE_X + 1))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(c: int, h: int, w: int, th: int, tw: int, *, sq: bool = True,
+                sums: bool = False, sms: int = 132, rows: int | None = None) -> WindowPlan:
+    """The kernel's launch for (c, h, w) planes and a th × tw window.
+
+    Channels go in groups of up to 4 (``cn``); 128 threads a block walk up
+    to 64 + 65 - 1 columns, so windows wider than 65 take 256 threads and
+    passes of up to 193 columns; the ring holds as many window rows as
+    shared memory allows (``kr``), taller windows take passes of ``kr``
+    rows.  ``rows`` (a multiple of 8) defaults to the strip height that
+    gives every SM as many blocks as fit on it at once.  The passes and the
+    strips are those of a launch that writes both sums, whatever is asked
+    for, so that each sum comes out the same bits either way (a sliding sum
+    restarts at each strip)."""
+    cn = min(c, 4)
+    nq, both = int(sq) + (cn if sums else 0), 1 + cn
+    threads = 128 if tw <= 128 - TILE_X + 1 else 256
+    kc = min(tw, threads - TILE_X + 1)
+    kr = min(th, (SMEM_BLOCK - window_smem(both, 0, kc)) // (4 * _pow2(both) * (TILE_X + kc - 1)))
+    smem = window_smem(nq, kr, kc)
+    per_sm = max(1, min(SMEM_SM // (smem + 1024), 2048 // threads))
+    ho, wo = h - th + 1, w - tw + 1
+    col_tiles = -(-wo // TILE_X)
+    if rows is None:
+        fit = max(1, min(SMEM_SM // (window_smem(both, kr, kc) + 1024), 2048 // threads))
+        row_tiles = max(1, -(-fit * sms // col_tiles))
+        rows = -(-ho // row_tiles)
+    rows = max(BATCH, -(-rows // BATCH) * BATCH)
+    passes = -(-c // cn) * -(-th // kr) * -(-tw // kc)
+    return WindowPlan(cn, threads, kr, kc, rows, col_tiles, -(-ho // rows), passes, smem, per_sm)
 
 
 @stream_cached(maxsize=128)
@@ -77,24 +152,29 @@ def _entry_points():
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     fn = lib.vacv_window_sum
     fn.restype = i
-    # device, stream, x, c, h, w, strides c/y/x, th, tw, sq, sums
-    fn.argtypes = [i, p, p, i, i, i, ll, ll, ll, i, i, p, p]
+    # device, stream, x, c, h, w, strides c/y/x, th, tw, sq, sums, rows, threads, kr, kc
+    fn.argtypes = [i, p, p, i, i, i, ll, ll, ll, i, i, p, p, i, i, i, i]
     return lib, fn
 
 
-def _launch(x, th, tw, sq, sums):
+def _launch(x, th, tw, sq, sums, rows=None):
+    """One launch; ``rows`` sets the strip height in place of
+    ``launch_plan``'s (a measurement's knob, not the API's)."""
     c, h, w = x.shape
     if min(x.stride()) < 0:
         raise ValueError("window-sum kernel needs non-negative strides")
-    if -(-(h - th + 1) // 32) > 65535:
-        raise ValueError("window-sum kernel output is too tall")
     dev = x.device
+    plan = launch_plan(c, h, w, th, tw, sq=sq, sums=sums, sms=build.sm_count(dev.index),
+                       rows=rows)
+    if plan.row_tiles > 65535:
+        raise ValueError("window-sum kernel output is too tall")
     ho, wo = h - th + 1, w - tw + 1
     wnd2 = torch.empty((ho, wo), dtype=torch.float32, device=dev) if sq else None
     wnd1 = torch.empty((c, ho, wo), dtype=torch.float32, device=dev) if sums else None
     lib, fn = _entry_points()
     rc = fn(dev.index, stream_key(dev), x.data_ptr(), c, h, w, *x.stride(), th, tw,
-            None if wnd2 is None else wnd2.data_ptr(), None if wnd1 is None else wnd1.data_ptr())
+            None if wnd2 is None else wnd2.data_ptr(), None if wnd1 is None else wnd1.data_ptr(),
+            plan.rows, plan.threads, plan.kr, plan.kc)
     build.check(lib, rc, "window-sum kernel")
     config.record_kernel("window_sum")
     return wnd2, wnd1
