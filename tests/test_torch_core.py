@@ -178,6 +178,7 @@ def test_import_loads_neither_jax_nor_triton():
         "vacv_tpu_torch.ops.cuda.normalize, vacv_tpu_torch.ops.cvt_color, "
         "vacv_tpu_torch.ops.cuda.warp_affine, vacv_tpu_torch.ops.cuda.match_template, "
         "vacv_tpu_torch.ops.fused, vacv_tpu_torch.utils, vacv_tpu_torch.utils.perf, "
+        "vacv_tpu_torch.utils.trace, "
         "vacv_tpu_torch.utils.io, vacv_tpu_torch.utils.loader, vacv_tpu_torch.native, "
         "vacv_tpu_torch.ops.imencode, vacv_tpu_torch.ops.cuda.probe, "
         "vacv_tpu_torch.profile, vacv_tpu_torch.profile.runner, "

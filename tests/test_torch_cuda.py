@@ -12,7 +12,9 @@ and f32 through each of its three paths (within 5e-3 on f32 in the older
 sweep); the correlation kernel
 within 1e-5 of the largest response magnitude; the tensor-core probe
 bit-exact with the probe's integer operands and, on random bf16 operands,
-within 1e-5 of the largest sum of product magnitudes.
+within 1e-5 of the largest sum of product magnitudes.  The tracer's
+counters on the card: one call into the kernel library a config-4 batch,
+two a config-5 batch, and a served 1080p frame's 6,220,800 bytes.
 """
 import numpy as np
 import pytest
@@ -1034,3 +1036,72 @@ def test_numpy_batch_goes_to_the_card_by_default(cuda):
     assert vt.normalize(batch[0].astype(np.float32)).data.device == cuda
     with config.device("cpu"):
         assert Preprocessor(cfg).batch(batch).device.type == "cpu"
+
+
+# --- the tracer's counters and spans on the card (utils/trace.py) --------
+
+
+def _config5(frame_w=2560, frame_h=1440):
+    """BASELINE config 5's Preprocessor on the card (portbench's config)."""
+    return Preprocessor(PreprocessConfig(
+        crop_rect=VRect(64, 36, frame_w - 64, frame_h - 36),
+        warp=(((0.9, 0.03, 40.0), (-0.03, 0.9, 25.0)), (1216, 684)), out_size=(224, 224)),
+        device="cuda")
+
+
+@pytest.mark.parametrize("which,calls", [("config4", 1), ("config5", 2)])
+def test_a_batch_makes_its_calls_into_the_kernel_library(cuda, which, calls):
+    from vacv_tpu_torch.utils import trace
+
+    if which == "config4":
+        pre = Preprocessor(PreprocessConfig(crop_rect=VRect(64, 28, 1856, 1064),
+                                            out_size=(224, 224)), device="cuda")
+        batch = batch_on(cuda, n=8, h=1080, w=1920)
+    else:
+        pre, batch = _config5(), batch_on(cuda, n=2, h=1440, w=2560)
+    top = torch.tensor(5, dtype=torch.int32, device=cuda)
+    pre.batch(batch, top=top)  # tables and plans made
+    torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
+    trace.keep_events(True)
+    try:
+        before, made = trace.counter("native.calls"), trace.counter("tables.made")
+        pre.batch(batch, top=top)
+        torch.cuda.synchronize()
+        assert trace.counter("native.calls") - before == calls
+        assert trace.counter("tables.made") == made
+        events = trace.snapshot()["events"]
+    finally:
+        trace.disable()
+        trace.keep_events(False)
+        trace.reset()
+    native = [e for e in events if e["name"] == "native.call"]
+    assert len(native) == calls and all(e["parent"].startswith("ops.") for e in native)
+    assert events[-1]["name"] == "pipeline.batch"
+
+
+def test_a_served_frame_is_staged_and_sent_once(cuda):
+    from vacv_tpu_torch.models import StreamExecutor
+    from vacv_tpu_torch.utils import trace
+
+    pre = Preprocessor(PreprocessConfig(crop_rect=VRect(64, 28, 1856, 1064),
+                                        out_size=(224, 224)), device="cuda")
+    frame = np.random.default_rng(3).integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    ex = StreamExecutor(pre, depth=2)
+    trace.reset()
+    trace.enable()
+    try:
+        sent = trace.counter("serve.h2d_bytes")
+        assert ex.submit(frame) is None
+        assert trace.counter("serve.h2d_bytes") - sent == 6_220_800
+        spans = trace.snapshot()["spans"]
+        (out,) = ex.drain()
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+        trace.reset()
+    for name in ("serve.submit", "serve.slot_wait", "serve.stage", "serve.h2d",
+                 "pipeline.batch", "native.call"):
+        assert spans[name]["count"] == 1, name
+    assert out.shape == (3, 224, 224)

@@ -1,5 +1,5 @@
-"""Runtime configuration: default device, backend preference and
-kernel-launch counters.
+"""Runtime configuration: default device, backend preference and the
+counters of the routes that served each call.
 
 The PyTorch counterpart of ``vacv_tpu.config``.  There is no compile
 cache: the CUDA kernels are built on first use (``ops/cuda/build.py``).
@@ -29,6 +29,8 @@ import os
 from contextlib import contextmanager
 
 import torch
+
+from .utils import trace
 
 _VALID = ("auto", "torch")
 _ENV_NAMES = {"auto": "auto", "pallas": "auto", "torch": "torch", "jnp": "torch"}
@@ -113,21 +115,15 @@ def backend(name: str):
         _BACKEND = prev
 
 
-# --- kernel-path observability ------------------------------------
-# Counters recording which route actually served each call.  A CUDA
-# wrapper records its name once per call that launched its kernel, and
-# nowhere else; a plain-PyTorch route records its own name, so tests
-# and chip_smoke.py can assert which one ran.
-_KERNEL_COUNTS: dict[str, int] = {}
-
-
-def record_kernel(name: str) -> None:
-    _KERNEL_COUNTS[name] = _KERNEL_COUNTS.get(name, 0) + 1
-
-
-def kernel_count(name: str) -> int:
-    return _KERNEL_COUNTS.get(name, 0)
-
-
-def reset_kernel_counts() -> None:
-    _KERNEL_COUNTS.clear()
+# --- route observability --------------------------------------------
+# Counters of the routes served: which route actually served each call.
+# A CUDA wrapper records its name once per call that launched its kernels
+# (one count, however many kernels the call launches; ``native.calls``
+# counts the calls into the kernel library), and nowhere else; a
+# plain-PyTorch route records its own name, so tests and chip_smoke.py can
+# assert which one ran.  They live in the port's tracer
+# (``utils/trace.py``) beside its other counters.
+_KERNEL_COUNTS = trace._counts
+record_kernel = trace.count
+kernel_count = trace.counter
+reset_kernel_counts = trace.reset_counts

@@ -24,6 +24,8 @@ import functools
 
 import torch
 
+from ..utils import trace
+
 
 def stream_key(device: torch.device) -> int | None:
     """The raw handle (``cudaStream_t``) of ``device``'s current CUDA
@@ -38,11 +40,14 @@ def stream_key(device: torch.device) -> int | None:
 def stream_cached(maxsize: int):
     """``functools.lru_cache(maxsize)`` for a function whose last argument
     is the device its tables go to, keyed by that device's current CUDA
-    stream too.  The wrapper keeps ``cache_clear`` and ``cache_info``."""
+    stream too.  The wrapper keeps ``cache_clear`` and ``cache_info``.
+    Each miss, a table made and copied to the device, counts as
+    ``tables.made`` in the port's tracer."""
 
     def wrap(make):
         @functools.lru_cache(maxsize=maxsize)
         def cached(*args, stream):
+            trace.count("tables.made")
             return make(*args)
 
         @functools.wraps(make)

@@ -43,6 +43,7 @@ from ..ops.dtype import as_torch_dtype
 from ..ops.normalize import normalize
 from ..ops.resize import resize
 from ..ops.warp_affine import invert_affine, warp_affine
+from ..utils import trace
 
 _FUSED_INTERP = {mode: name for name, mode in INTERP_MODES.items()}
 
@@ -284,14 +285,21 @@ class Preprocessor:
         ``top`` optionally moves the crop rect's top at run time (a
         Python int or a 0-d integer tensor, e.g. from a tracker running
         on the device); the crop keeps its size and is clamped to the
-        frame."""
-        arr = as_tensor(arr, self.device)
-        if self._warp_route():
-            return self._run_warp(arr, top)
-        geom = self._fused_geometry(tuple(arr.shape[1:]), arr.dtype)
-        if geom is not None:
-            return self._run_fused(arr, geom, top)
-        return torch.stack([self._run_chain(frame, top) for frame in arr])
+        frame.
+
+        Traced as span ``pipeline.batch`` (``utils/trace.py``)."""
+        span = trace.begin("pipeline.batch") if trace.ON else None
+        try:
+            arr = as_tensor(arr, self.device)
+            if self._warp_route():
+                return self._run_warp(arr, top)
+            geom = self._fused_geometry(tuple(arr.shape[1:]), arr.dtype)
+            if geom is not None:
+                return self._run_fused(arr, geom, top)
+            return torch.stack([self._run_chain(frame, top) for frame in arr])
+        finally:
+            if span is not None:
+                trace.end(span)
 
     def __call__(self, arr):
         """Run the pipeline on one (H, W, C) frame or (H·3/2, W) NV buffer."""

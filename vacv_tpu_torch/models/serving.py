@@ -19,6 +19,13 @@ the work the caller queued before ``submit``.
 First-use device tables (the resize taps and weights) are copied from
 pageable memory by a blocking copy, so they are whole on the card before
 any stream reads them.  On the CPU the same code runs without streams.
+
+Traced (``utils/trace.py``), each frame carries its number: span
+``serve.submit`` around ``submit``; inside a host frame's upload
+``serve.slot_wait`` (the wait for the slot's previous copy),
+``serve.stage`` (the copy into the pinned slot) and ``serve.h2d`` (the
+copy's enqueue and its event); ``serve.hand_over`` around handing a result
+over.  Counter: ``serve.h2d_bytes`` sent to the card.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from .. import config
 from ..core.image import as_tensor
+from ..utils import trace
 
 
 def _record(out, stream) -> None:
@@ -51,17 +59,28 @@ class _Lane:
         self.host = None
         self.copied = None  # event after the last copy out of ``host``
 
-    def upload(self, frame: torch.Tensor) -> torch.Tensor:
-        """A CPU frame on the card, copied on this lane's stream."""
+    def upload(self, frame: torch.Tensor, seq: int) -> torch.Tensor:
+        """CPU frame number ``seq`` on the card, copied on this lane's
+        stream."""
+        span = trace.begin("serve.slot_wait", seq) if trace.ON else None
         if self.copied is not None:
             self.copied.synchronize()  # the slot's previous frame has left it
+        if span is not None:
+            trace.end(span)
         if self.host is None or self.host.shape != frame.shape or self.host.dtype != frame.dtype:
             self.host = torch.empty(frame.shape, dtype=frame.dtype, pin_memory=True)
+        span = trace.begin("serve.stage", seq) if trace.ON else None
         self.host.copy_(frame)
+        if span is not None:
+            trace.end(span)
+        span = trace.begin("serve.h2d", seq) if trace.ON else None
         with torch.cuda.stream(self.stream):
             dev = self.host.to(self.device, non_blocking=True)
             self.copied = torch.cuda.Event()
             self.copied.record(self.stream)
+        if span is not None:
+            trace.end(span)
+        trace.count("serve.h2d_bytes", self.host.nbytes)
         return dev
 
 
@@ -84,44 +103,53 @@ class StreamExecutor:
         self._device = config.input_device()
         self._q: deque = deque()
         self._lanes = None
-        self._k = 0
+        self._seq = 0  # frames submitted
 
-    def _run(self, frame):
-        """(result, event) of one frame: on a lane's stream on the card,
-        inline (event None) on the CPU."""
+    def _run(self, frame, seq):
+        """(result, event, ``seq``) of frame number ``seq``: on a lane's
+        stream on the card, inline (event None) on the CPU."""
         on_card = (frame.device.type == "cuda" if isinstance(frame, torch.Tensor)
                    else self._device.type == "cuda")
         if not on_card:
-            return self._fn(as_tensor(frame, self._device)), None
+            return self._fn(as_tensor(frame, self._device)), None, seq
         device = frame.device if isinstance(frame, torch.Tensor) else self._device
         if self._lanes is None:
             self._lanes = [_Lane(device) for _ in range(self._depth)]
-        lane = self._lanes[self._k % self._depth]
-        self._k += 1
+        lane = self._lanes[seq % self._depth]
         if isinstance(frame, torch.Tensor):
             lane.stream.wait_stream(torch.cuda.current_stream(device))
             frame.record_stream(lane.stream)
         else:
-            frame = lane.upload(torch.from_numpy(np.ascontiguousarray(frame)))
+            frame = lane.upload(torch.from_numpy(np.ascontiguousarray(frame)), seq)
         with torch.cuda.stream(lane.stream):
             out = self._fn(frame)
             done = torch.cuda.Event()
             done.record(lane.stream)
-        return out, done
+        return out, done, seq
 
     def _hand_over(self, item):
-        out, done = item
+        out, done, seq = item
+        span = trace.begin("serve.hand_over", seq) if trace.ON else None
         if done is not None:
             current = torch.cuda.current_stream(self._lanes[0].device)
             current.wait_event(done)
             _record(out, current)
+        if span is not None:
+            trace.end(span)
         return out
 
     def submit(self, frame):
-        self._q.append(self._run(frame))
-        if len(self._q) >= self._depth:  # same discipline as stream_map
-            return self._hand_over(self._q.popleft())
-        return None
+        seq = self._seq
+        self._seq += 1
+        span = trace.begin("serve.submit", seq) if trace.ON else None
+        try:
+            self._q.append(self._run(frame, seq))
+            if len(self._q) >= self._depth:  # same discipline as stream_map
+                return self._hand_over(self._q.popleft())
+            return None
+        finally:
+            if span is not None:
+                trace.end(span)
 
     def drain(self):
         while self._q:

@@ -9,6 +9,10 @@ seconds.  The library lands in
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the last build.  Nothing here runs at import: the first CUDA call
 builds (``library()``).
+
+Every call into the library that launches work counts ``native.calls``
+and, with the tracer's spans on (``utils/trace.py``), is timed as span
+``native.call`` inside its wrapper's span ``ops.<the route it records>``.
 """
 from __future__ import annotations
 

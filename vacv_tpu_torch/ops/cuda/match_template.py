@@ -24,6 +24,7 @@ import functools
 import torch
 
 from ... import config
+from ...utils import trace
 from . import build
 
 TILE_H, TILE_W = 32, 128  # the kernel's output tile (csrc/match_template.cu)
@@ -88,8 +89,13 @@ def _launch(img, k):
     # first slice, which is the response.
     out = torch.empty((splits, h_out, w_out), dtype=torch.float32, device=dev)
     lib, fn = _entry_points()
-    rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
-            img.data_ptr(), c, h, w, *img.stride(), k.data_ptr(), th, tw, out.data_ptr(), splits)
+    args = (dev.index, torch.cuda.current_stream(dev).cuda_stream, img.data_ptr(), c, h, w,
+            *img.stride(), k.data_ptr(), th, tw, out.data_ptr(), splits)
+    span = trace.begin("native.call") if trace.ON else None
+    rc = fn(*args)
+    if span is not None:
+        trace.end(span)
+    trace.count("native.calls")
     build.check(lib, rc, "correlation kernel")
     config.record_kernel("match_corr")
     return out[0]
@@ -102,11 +108,17 @@ def corr_planes(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     Raises ValueError for inputs the kernel does not take (not rank 3, not
     f32, a template larger than the image or with another channel
     count)."""
-    _check(img, k)
-    if img.device.type == "cuda":
-        return _launch(img, k)
-    if img.device.type != "cpu":
-        raise ValueError(f"no correlation route for device {img.device}")
-    out = corr_planes_torch(img, k)
-    config.record_kernel("match_corr_torch")
-    return out
+    span = (trace.begin("ops.match_corr" if img.is_cuda
+                        else "ops.match_corr_torch") if trace.ON else None)
+    try:
+        _check(img, k)
+        if img.device.type == "cuda":
+            return _launch(img, k)
+        if img.device.type != "cpu":
+            raise ValueError(f"no correlation route for device {img.device}")
+        out = corr_planes_torch(img, k)
+        config.record_kernel("match_corr_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)

@@ -22,6 +22,7 @@ from ... import config
 from ...core.image import Image
 from ...core.types import Layout
 from ..normalize import normalize_torch
+from ...utils import trace
 from . import build
 
 @dataclass(frozen=True)
@@ -146,10 +147,15 @@ def _launch(planes, form):
     part = None
     if plan.scratch:
         part = torch.empty(plan.scratch, dtype=torch.float64, device=dev)
-    rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    args = (dev.index, torch.cuda.current_stream(dev).cuda_stream,
             planes.data_ptr(), int(planes.dtype == torch.uint8), out.data_ptr(),
             p, h * w, plan.cluster, plan.grid, plan.per_plane, plan.slice, plan.cap, plan.rounds,
             int(plan.stream), None if part is None else part.data_ptr())
+    span = trace.begin("native.call") if trace.ON else None
+    rc = fn(*args)
+    if span is not None:
+        trace.end(span)
+    trace.count("native.calls")
     build.check(lib, rc, f"normalize kernel ({plan.form} form)")
     config.record_kernel("normalize_fused")
     return out
@@ -162,12 +168,18 @@ def normalize_fused(planes: torch.Tensor, form: str = "auto") -> torch.Tensor:
     "cluster" / "grid" to hold one form to the other.  Raises ValueError
     for planes the kernel does not take (not rank 3, not u8 or f32, not
     contiguous, or too large for a requested cluster form)."""
-    if planes.device.type == "cuda":
-        return _launch(planes, form)
-    if planes.device.type != "cpu":
-        raise ValueError(f"no normalize route for device {planes.device}")
-    if form not in FORMS:
-        raise ValueError(f"normalize form must be one of {FORMS}, got {form!r}")
-    out = normalize_torch(Image(planes, Layout.CHW)).data
-    config.record_kernel("normalize_fused_torch")
-    return out
+    span = (trace.begin("ops.normalize_fused" if planes.is_cuda
+                        else "ops.normalize_fused_torch") if trace.ON else None)
+    try:
+        if planes.device.type == "cuda":
+            return _launch(planes, form)
+        if planes.device.type != "cpu":
+            raise ValueError(f"no normalize route for device {planes.device}")
+        if form not in FORMS:
+            raise ValueError(f"normalize form must be one of {FORMS}, got {form!r}")
+        out = normalize_torch(Image(planes, Layout.CHW)).data
+        config.record_kernel("normalize_fused_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)

@@ -65,6 +65,7 @@ from ..normalize import normalize_planes
 from ..resize import (
     _cubic_weights, _linear_weights, _nearest_weights, u8_epilogue, u8_eps,
 )
+from ...utils import trace
 from . import build
 
 # The interpolations the kernel takes, and its taps per output row/column.
@@ -507,11 +508,14 @@ def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
     if plan.form == "one_pass":
         # each block's moments, 6 x 8 bytes
         slots = torch.empty(n * plan.blocks * 6, dtype=torch.int64, device=dev)
-        rc = one_pass(
-            dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *map(int, nv), *taps,
-            eps, plan.blocks, plan.rows, plan.chan, *have, int(plan.stream), slots.data_ptr(),
-            *stats,
-        )
+        args = (dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *map(int, nv),
+                *taps, eps, plan.blocks, plan.rows, plan.chan, *have, int(plan.stream),
+                slots.data_ptr(), *stats)
+        span = trace.begin("native.call") if trace.ON else None
+        rc = one_pass(*args)
+        if span is not None:
+            trace.end(span)
+        trace.count("native.calls")
         build.check(lib, rc, f"{name} one-pass kernel")
         config.record_kernel(name)
         return out
@@ -520,22 +524,39 @@ def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
         # the u8 planes, then each resize block's moments (6 x 8 bytes) at a 16-byte boundary
         at = -(-n * 3 * plane // 16) * 16
         scratch = torch.empty(at + n * parts * 48, dtype=torch.uint8, device=dev)
-        rc = moments(dev.index, stream, batch.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                     scratch.data_ptr() + at, n, h, w, int(planar), *taps, eps, plan.blocks,
-                     *have, *stats)
+        args = (dev.index, stream, batch.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                scratch.data_ptr() + at, n, h, w, int(planar), *taps, eps, plan.blocks,
+                *have, *stats)
+        span = trace.begin("native.call") if trace.ON else None
+        rc = moments(*args)
+        if span is not None:
+            trace.end(span)
+        trace.count("native.calls")
         build.check(lib, rc, f"{name} moments kernels")
         config.record_kernel(name)
         return out
     norm_stats = (*(mean_s if static_norm else zeros), *(std_s if static_norm else zeros))
     if nv is not None:
-        rc = nv_resize(dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w,
-                       *map(int, nv), *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
+        fn = nv_resize
+        args = (dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *map(int, nv),
+                *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
     else:
-        rc = resize(dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, int(planar),
-                    *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
+        fn = resize
+        args = (dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, int(planar),
+                *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
+    span = trace.begin("native.call") if trace.ON else None
+    rc = fn(*args)
+    if span is not None:
+        trace.end(span)
+    trace.count("native.calls")
     build.check(lib, rc, f"{name} resize kernel")
     if plan.form == "two_launch":
-        rc = norm(dev.index, stream, out.data_ptr(), n * 3, oh * ow, *have, *stats)
+        args = (dev.index, stream, out.data_ptr(), n * 3, oh * ow, *have, *stats)
+        span = trace.begin("native.call") if trace.ON else None
+        rc = norm(*args)
+        if span is not None:
+            trace.end(span)
+        trace.count("native.calls")
         build.check(lib, rc, f"{name} normalize kernel")
     config.record_kernel(name)
     return out
@@ -573,18 +594,24 @@ def preprocess_fused_batch(
     ``"preprocess_fused_torch"``).  Raises ValueError for inputs the
     kernel does not take.
     """
-    kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
-                  trunc_u8=trunc_u8, interp=interp)
-    if batch.device.type == "cuda":
-        geom = _geometry(batch, crop_rect, out_size, interp, top)
-        plan = _plan(geom, "bgr", card_limits(batch.device.index), normalize, mean, stddev,
-                     trunc_u8)
-        return _launch(batch, geom, None, name="preprocess_fused", plan=plan, **kwargs)
-    if batch.device.type != "cpu":
-        raise ValueError(f"no fused preprocess route for device {batch.device}")
-    out = preprocess_fused_batch_torch(batch, crop_rect, out_size, **kwargs)
-    config.record_kernel("preprocess_fused_torch")
-    return out
+    span = (trace.begin("ops.preprocess_fused" if batch.is_cuda
+                        else "ops.preprocess_fused_torch") if trace.ON else None)
+    try:
+        kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
+                      trunc_u8=trunc_u8, interp=interp)
+        if batch.device.type == "cuda":
+            geom = _geometry(batch, crop_rect, out_size, interp, top)
+            plan = _plan(geom, "bgr", card_limits(batch.device.index), normalize, mean, stddev,
+                         trunc_u8)
+            return _launch(batch, geom, None, name="preprocess_fused", plan=plan, **kwargs)
+        if batch.device.type != "cpu":
+            raise ValueError(f"no fused preprocess route for device {batch.device}")
+        out = preprocess_fused_batch_torch(batch, crop_rect, out_size, **kwargs)
+        config.record_kernel("preprocess_fused_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)
 
 
 def preprocess_fused_nv_batch(
@@ -619,22 +646,28 @@ def preprocess_fused_nv_batch(
     not a multiple of 3, an odd width, a crop outside the frame) and for
     a form that cannot serve the call.
     """
-    kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
-                  trunc_u8=trunc_u8)
-    if batch.device.type == "cuda":
-        geom = _nv_geometry(batch, crop_rect, out_size, top)
-        plan = _plan(geom, "nv", card_limits(batch.device.index), normalize, mean, stddev,
-                     trunc_u8, form)
-        return _launch(batch, geom, (is_nv12, to_rgb), interp="linear",
-                       name="preprocess_fused_nv", plan=plan, **kwargs)
-    if batch.device.type != "cpu":
-        raise ValueError(f"no fused NV preprocess route for device {batch.device}")
-    if form not in FORMS:
-        raise ValueError(f"NV form must be one of {FORMS}, got {form!r}")
-    out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, is_nv12=is_nv12,
-                                          to_rgb=to_rgb, **kwargs)
-    config.record_kernel("preprocess_fused_nv_torch")
-    return out
+    span = (trace.begin("ops.preprocess_fused_nv" if batch.is_cuda
+                        else "ops.preprocess_fused_nv_torch") if trace.ON else None)
+    try:
+        kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
+                      trunc_u8=trunc_u8)
+        if batch.device.type == "cuda":
+            geom = _nv_geometry(batch, crop_rect, out_size, top)
+            plan = _plan(geom, "nv", card_limits(batch.device.index), normalize, mean, stddev,
+                         trunc_u8, form)
+            return _launch(batch, geom, (is_nv12, to_rgb), interp="linear",
+                           name="preprocess_fused_nv", plan=plan, **kwargs)
+        if batch.device.type != "cpu":
+            raise ValueError(f"no fused NV preprocess route for device {batch.device}")
+        if form not in FORMS:
+            raise ValueError(f"NV form must be one of {FORMS}, got {form!r}")
+        out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, is_nv12=is_nv12,
+                                              to_rgb=to_rgb, **kwargs)
+        config.record_kernel("preprocess_fused_nv_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)
 
 
 def preprocess_fused_planes(planes, out_size, *, interp="linear", mean=None, stddev=None,
@@ -655,15 +688,21 @@ def preprocess_fused_planes(planes, out_size, *, interp="linear", mean=None, std
     version, counted as ``"preprocess_fused_planar_torch"``.  Raises
     ValueError for inputs the kernel does not take (not (N, 3, h, w) u8, an
     interpolation other than linear, cubic or nearest)."""
-    kwargs = dict(mean=mean, stddev=stddev, normalize=normalize, interp=interp)
-    if planes.device.type == "cuda":
-        geom = _planes_geometry(planes, out_size, interp)
-        plan = _plan(geom, "planar", card_limits(planes.device.index), normalize, mean, stddev,
-                     True)
-        return _launch(planes, geom, None, None, trunc_u8=True, name="preprocess_fused_planar",
-                       plan=plan, planar=True, **kwargs)
-    if planes.device.type != "cpu":
-        raise ValueError(f"no fused planar preprocess route for device {planes.device}")
-    out = preprocess_fused_planes_torch(planes, out_size, **kwargs)
-    config.record_kernel("preprocess_fused_planar_torch")
-    return out
+    span = (trace.begin("ops.preprocess_fused_planar" if planes.is_cuda
+                        else "ops.preprocess_fused_planar_torch") if trace.ON else None)
+    try:
+        kwargs = dict(mean=mean, stddev=stddev, normalize=normalize, interp=interp)
+        if planes.device.type == "cuda":
+            geom = _planes_geometry(planes, out_size, interp)
+            plan = _plan(geom, "planar", card_limits(planes.device.index), normalize, mean,
+                         stddev, True)
+            return _launch(planes, geom, None, None, trunc_u8=True,
+                           name="preprocess_fused_planar", plan=plan, planar=True, **kwargs)
+        if planes.device.type != "cpu":
+            raise ValueError(f"no fused planar preprocess route for device {planes.device}")
+        out = preprocess_fused_planes_torch(planes, out_size, **kwargs)
+        config.record_kernel("preprocess_fused_planar_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)

@@ -25,6 +25,7 @@ import functools
 import torch
 
 from ... import config
+from ...utils import trace
 from . import build
 
 # operand type → (result type, K granule of one mma step)
@@ -100,9 +101,14 @@ def _launch(a, b, reps, m):
     lib, fn = _entry_points()
     # The raw handle of the current stream: a probe call is microseconds of
     # work, and torch.cuda.current_stream() builds a Stream object per call.
-    rc = fn(dev.index, torch._C._cuda_getCurrentRawStream(dev.index), a.data_ptr(), a.stride(0),
+    args = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index), a.data_ptr(), a.stride(0),
             b.data_ptr(), b.stride(0), out.data_ptr(), m, k, n, int(reps), splits,
             int(a.dtype == torch.int8))
+    span = trace.begin("native.call") if trace.ON else None
+    rc = fn(*args)
+    if span is not None:
+        trace.end(span)
+    trace.count("native.calls")
     build.check(lib, rc, "probe kernel")
     config.record_kernel("probe_dot")
     return out[0]
@@ -115,11 +121,17 @@ def probe_dot(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     Raises ValueError for operands the kernel does not take (other types,
     a row count below reps + 1, K not a multiple of 16 for bf16 or 32 for
     int8, rows that are not contiguous or, for a, not 16-byte aligned)."""
-    m = _check(a, b, reps)
-    if a.device.type == "cuda":
-        return _launch(a, b, reps, m)
-    if a.device.type != "cpu":
-        raise ValueError(f"no probe route for device {a.device}")
-    out = probe_dot_torch(a, b, reps)
-    config.record_kernel("probe_dot_torch")
-    return out
+    span = (trace.begin("ops.probe_dot" if a.is_cuda
+                        else "ops.probe_dot_torch") if trace.ON else None)
+    try:
+        m = _check(a, b, reps)
+        if a.device.type == "cuda":
+            return _launch(a, b, reps, m)
+        if a.device.type != "cpu":
+            raise ValueError(f"no probe route for device {a.device}")
+        out = probe_dot_torch(a, b, reps)
+        config.record_kernel("probe_dot_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)

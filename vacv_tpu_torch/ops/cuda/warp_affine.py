@@ -46,6 +46,7 @@ from ... import config
 from ...core.types import BorderMode, InterMode
 from ..crop import dynamic_slice
 from ..warp_affine import INTERPS, warp_epilogue, warp_planes_torch
+from ...utils import trace
 from . import build
 
 _MAX_GRID_Z = 65535  # frames x channel groups
@@ -205,12 +206,17 @@ def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out, path="aut
         # The kernel reads the top from the device and clamps it there.
         top = row0.reshape(()).to(device=dev, dtype=torch.int32)
     m = np.asarray(minv, np.float32).reshape(6)
-    rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    args = (dev.index, torch.cuda.current_stream(dev).cuda_stream,
             planes.data_ptr(), int(planes.dtype == torch.uint8), n, c, h, w, *planes.stride(),
             out.data_ptr(), h_out, w_out, *out.stride(),
             *(float(v) for v in m), int(InterMode(interp)), int(BorderMode(border)),
             float(bv), int(vacv), PATHS.index(path), None if top is None else top.data_ptr(),
             h_full)
+    span = trace.begin("native.call") if trace.ON else None
+    rc = fn(*args)
+    if span is not None:
+        trace.end(span)
+    trace.count("native.calls")
     build.check(lib, rc, "warp kernel")
     config.record_kernel("warp_affine")
     return out
@@ -235,26 +241,33 @@ def warp_planes_batch(planes, minv, h_out: int, w_out: int, *, row0=None, rows=N
     uint8, an interpolation other than linear/nearest/cubic, a border other
     than CONSTANT/REPLICATE/REFLECT/WRAP/REFLECT_101, an unknown path, a
     top that is not one integer, a crop taller than the planes)."""
-    _check(planes, interp, border, row0, rows)
-    shape = planes.shape[:2] + (h_out, w_out)
-    if out is None:
-        out = torch.empty(shape, dtype=planes.dtype, device=planes.device)
-    elif tuple(out.shape) != tuple(shape) or out.dtype != planes.dtype or out.device != planes.device:
-        raise ValueError(f"out must be {tuple(shape)} {planes.dtype} on {planes.device}")
-    vacv = edge_mode == "vacv"
-    if planes.device.type == "cuda":
-        if planes.dtype in (torch.uint8, torch.float32):
-            return _launch(planes, minv, h_out, w_out, interp, border, border_value, vacv, out,
-                           path, row0, rows)
-        # f16 / bf16 / f64: warped in f32 and narrowed on write-out.
-        wide = torch.empty(shape, dtype=torch.float32, device=planes.device)
-        _launch(planes.to(torch.float32), minv, h_out, w_out, interp, border, border_value,
-                vacv, wide, path, row0, rows)
-        return out.copy_(wide)
-    if planes.device.type != "cpu":
-        raise ValueError(f"no warp route for device {planes.device}")
-    out.copy_(warp_planes_batch_torch(planes, minv, h_out, w_out, row0=row0, rows=rows,
-                                      interp=interp, border=border, border_value=border_value,
-                                      edge_mode=edge_mode))
-    config.record_kernel("warp_affine_torch")
-    return out
+    span = (trace.begin("ops.warp_affine" if planes.is_cuda
+                        else "ops.warp_affine_torch") if trace.ON else None)
+    try:
+        _check(planes, interp, border, row0, rows)
+        shape = planes.shape[:2] + (h_out, w_out)
+        if out is None:
+            out = torch.empty(shape, dtype=planes.dtype, device=planes.device)
+        elif (tuple(out.shape) != tuple(shape) or out.dtype != planes.dtype
+              or out.device != planes.device):
+            raise ValueError(f"out must be {tuple(shape)} {planes.dtype} on {planes.device}")
+        vacv = edge_mode == "vacv"
+        if planes.device.type == "cuda":
+            if planes.dtype in (torch.uint8, torch.float32):
+                return _launch(planes, minv, h_out, w_out, interp, border, border_value, vacv,
+                               out, path, row0, rows)
+            # f16 / bf16 / f64: warped in f32 and narrowed on write-out.
+            wide = torch.empty(shape, dtype=torch.float32, device=planes.device)
+            _launch(planes.to(torch.float32), minv, h_out, w_out, interp, border, border_value,
+                    vacv, wide, path, row0, rows)
+            return out.copy_(wide)
+        if planes.device.type != "cpu":
+            raise ValueError(f"no warp route for device {planes.device}")
+        out.copy_(warp_planes_batch_torch(planes, minv, h_out, w_out, row0=row0, rows=rows,
+                                          interp=interp, border=border, border_value=border_value,
+                                          edge_mode=edge_mode))
+        config.record_kernel("warp_affine_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)

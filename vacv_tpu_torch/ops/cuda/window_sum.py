@@ -32,6 +32,7 @@ import torch
 
 from ... import config
 from ...core.device_tables import stream_cached, stream_key
+from ...utils import trace
 from . import build
 
 
@@ -172,9 +173,14 @@ def _launch(x, th, tw, sq, sums, rows=None):
     wnd2 = torch.empty((ho, wo), dtype=torch.float32, device=dev) if sq else None
     wnd1 = torch.empty((c, ho, wo), dtype=torch.float32, device=dev) if sums else None
     lib, fn = _entry_points()
-    rc = fn(dev.index, stream_key(dev), x.data_ptr(), c, h, w, *x.stride(), th, tw,
+    args = (dev.index, stream_key(dev), x.data_ptr(), c, h, w, *x.stride(), th, tw,
             None if wnd2 is None else wnd2.data_ptr(), None if wnd1 is None else wnd1.data_ptr(),
             plan.rows, plan.threads, plan.kr, plan.kc)
+    span = trace.begin("native.call") if trace.ON else None
+    rc = fn(*args)
+    if span is not None:
+        trace.end(span)
+    trace.count("native.calls")
     build.check(lib, rc, "window-sum kernel")
     config.record_kernel("window_sum")
     return wnd2, wnd1
@@ -188,11 +194,17 @@ def window_sums(x: torch.Tensor, th: int, tw: int, *, sq: bool = True, sums: boo
 
     Raises ValueError for inputs the kernel does not take (not rank 3, not
     f32, a window larger than the image, neither sum asked for)."""
-    _check(x, th, tw, sq, sums)
-    if x.device.type == "cuda":
-        return _launch(x, th, tw, sq, sums)
-    if x.device.type != "cpu":
-        raise ValueError(f"no window-sum route for device {x.device}")
-    out = window_sums_torch(x, th, tw, sq=sq, sums=sums)
-    config.record_kernel("window_sum_torch")
-    return out
+    span = (trace.begin("ops.window_sum" if x.is_cuda
+                        else "ops.window_sum_torch") if trace.ON else None)
+    try:
+        _check(x, th, tw, sq, sums)
+        if x.device.type == "cuda":
+            return _launch(x, th, tw, sq, sums)
+        if x.device.type != "cpu":
+            raise ValueError(f"no window-sum route for device {x.device}")
+        out = window_sums_torch(x, th, tw, sq=sq, sums=sums)
+        config.record_kernel("window_sum_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)

@@ -16,6 +16,7 @@ import torch
 
 from ... import config
 from ..cvt_color import check_nv_planes, nv_to_bgr_planes_torch
+from ...utils import trace
 from . import build
 
 # A thread takes two Y rows; the grid's y dimension (at most 65535) counts
@@ -71,10 +72,15 @@ def _launch(y_plane, vu_plane, is_nv12):
         vec = vector_width(h, w, y_plane.data_ptr(), y_plane.stride(0),
                            vu_plane.data_ptr(), vu_plane.stride(0), out.data_ptr())
         lib, fn = _entry_points()
-        rc = fn(dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        args = (dev.index, torch.cuda.current_stream(dev).cuda_stream,
                 y_plane.data_ptr(), y_plane.stride(0),
                 vu_plane.data_ptr(), vu_plane.stride(0),
                 out.data_ptr(), h, w, int(is_nv12), vec)
+        span = trace.begin("native.call") if trace.ON else None
+        rc = fn(*args)
+        if span is not None:
+            trace.end(span)
+        trace.count("native.calls")
         build.check(lib, rc, f"yuv2bgr kernel ({vec} bytes a thread)")
         config.record_kernel("yuv2bgr")
     return out[0], out[1], out[2]
@@ -86,10 +92,16 @@ def nv_to_bgr(y_plane, vu_plane, *, is_nv12: bool):
     Raises ValueError for planes the kernel does not take (not u8, an
     odd width, a VU plane shorter than ⌈h/2⌉ rows, rows that are not
     contiguous)."""
-    if y_plane.device.type == "cuda":
-        return _launch(y_plane, vu_plane, is_nv12)
-    if y_plane.device.type != "cpu":
-        raise ValueError(f"no yuv2bgr route for device {y_plane.device}")
-    out = nv_to_bgr_planes_torch(y_plane, vu_plane, is_nv12=is_nv12)
-    config.record_kernel("yuv2bgr_torch")
-    return out
+    span = (trace.begin("ops.yuv2bgr" if y_plane.is_cuda
+                        else "ops.yuv2bgr_torch") if trace.ON else None)
+    try:
+        if y_plane.device.type == "cuda":
+            return _launch(y_plane, vu_plane, is_nv12)
+        if y_plane.device.type != "cpu":
+            raise ValueError(f"no yuv2bgr route for device {y_plane.device}")
+        out = nv_to_bgr_planes_torch(y_plane, vu_plane, is_nv12=is_nv12)
+        config.record_kernel("yuv2bgr_torch")
+        return out
+    finally:
+        if span is not None:
+            trace.end(span)
