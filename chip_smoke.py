@@ -1505,12 +1505,12 @@ def time_forms_and_paths(card: str) -> None:
 
 def nv_one_pass_with(batch, rect, top, plan):
     """The fused NV kernel's one-pass form with ``plan``'s blocks a frame,
-    through the wrapper's own launch (the public call takes the plan's)."""
+    through the wrapper's own record (the public call takes the plan's)."""
     from vacv_tpu_torch.ops.cuda import preprocess as pk
 
     geom = pk._nv_geometry(batch, rect, (OUT, OUT), top)
-    return pk._launch(batch, geom, (False, False), top, None, None, True, True, "linear",
-                      "preprocess_fused_nv", plan=plan)
+    return pk._prepare(batch, geom, (False, False), top, None, None, True, True, "linear",
+                       "preprocess_fused_nv", plan=plan).run(batch, top)
 
 
 def time_nv_one_pass_sweep(card: str) -> None:

@@ -14,8 +14,14 @@ within 1e-5 of the largest response magnitude; the tensor-core probe
 bit-exact with the probe's integer operands and, on random bf16 operands,
 within 1e-5 of the largest sum of product magnitudes.  The tracer's
 counters on the card: one call into the kernel library a config-4 batch,
-two a config-5 batch, and a served 1080p frame's 6,220,800 bytes.
+two a config-5 batch, and a served 1080p frame's 6,220,800 bytes.  The
+launch records of ``Preprocessor.batch``: a hit, a miss and the public
+wrappers bit for bit on each CUDA route, with None, int and tensor tops
+changing every call, on ``StreamExecutor``'s four lane streams and with
+Preprocessors in turns.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -361,8 +367,8 @@ def test_nv_one_pass_blocks_give_the_same_bits(cuda, blocks):
     plan = pk.one_pass_plan(3, OUT[1], OUT[0], pk.card_limits(0), blocks)
     assert plan is not None and plan.blocks == blocks
     geom = pk._nv_geometry(nv, NV_RECT, OUT, None)
-    got = pk._launch(nv, geom, (False, False), None, None, None, True, True, "linear",
-                     "preprocess_fused_nv", plan=plan)
+    got = pk._prepare(nv, geom, (False, False), None, None, None, True, True, "linear",
+                      "preprocess_fused_nv", plan=plan).run(nv)
     torch.cuda.synchronize()
     assert torch.equal(got, preprocess_fused_nv_batch(nv, NV_RECT, OUT))
 
@@ -1105,3 +1111,106 @@ def test_a_served_frame_is_staged_and_sent_once(cuda):
                  "pipeline.batch", "native.call"):
         assert spans[name]["count"] == 1, name
     assert out.shape == (3, 224, 224)
+
+
+# --- launch records (models/pipeline.py: a batch's launch prepared once) ----
+
+RECORD_ROUTES = {
+    "cuda_fused": (PreprocessConfig(crop_rect=RECT, out_size=OUT),
+                   lambda dev, seed: batch_on(dev, n=4, seed=seed)),
+    "cuda_fused_nv": (PreprocessConfig(color_code=ColorCode.COLOR_YUV2BGR_NV21, crop_rect=NV_RECT,
+                                       out_size=OUT),
+                      lambda dev, seed: nv_on(dev, n=3, seed=seed)),
+    "cuda_warp": (PreprocessConfig(crop_rect=VRect(20, 10, 620, 350),
+                                   warp=(tuple(map(tuple, M_ROT)), (304, 171)), out_size=(96, 96)),
+                  lambda dev, seed: batch_on(dev, n=3, seed=seed)),
+}
+RECORD_TOPS = [3, 0, 41, -7, 400]  # inside, at the edge, clamped below and above
+
+
+def through_the_wrappers(pre, batch, top):
+    """The route's calls of the public wrappers, which prepare every call."""
+    if pre._warp_route():
+        return pre._run_warp(batch, top)
+    return pre._run_fused(batch, pre._fused_geometry(tuple(batch.shape[1:]), batch.dtype), top)
+
+
+def record_counts():
+    from vacv_tpu_torch.utils import trace
+
+    return trace.counter("pipeline.records_made"), trace.counter("pipeline.record_hits")
+
+
+@pytest.mark.parametrize("top", ["none", "int", "tensor"])
+@pytest.mark.parametrize("route", list(RECORD_ROUTES))
+def test_a_record_hit_a_miss_and_the_wrappers_give_the_same_bits(cuda, route, top):
+    """Five batches of new data, the top changing every call: the hits,
+    a new Preprocessor's miss and the public wrappers agree bit for bit,
+    and no call changes an earlier call's output."""
+    cfg, make = RECORD_ROUTES[route]
+    pre = Preprocessor(cfg, device="cuda")
+    made, hits = record_counts()
+    kept = []
+    for k, t in enumerate(RECORD_TOPS):
+        batch = make(cuda, k)
+        assert pre.describe_route(batch.shape[1:]) == route
+        t = {"none": None, "int": t, "tensor": torch.tensor(t, dtype=torch.int32, device=cuda)}[top]
+        got = pre.batch(batch, top=t)
+        miss = Preprocessor(cfg, device="cuda").batch(batch, top=t)
+        want = through_the_wrappers(pre, batch, t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(miss, want), (route, top, k)
+        kept.append((got, got.clone()))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in kept)
+    n = len(RECORD_TOPS)
+    assert tuple(c - b for c, b in zip(record_counts(), (made, hits))) == (1 + n, n - 1)
+
+
+def test_an_int64_top_on_the_host_is_cast_as_before(cuda):
+    for route, (cfg, make) in RECORD_ROUTES.items():
+        pre = Preprocessor(cfg, device="cuda")
+        batch = make(cuda, 9)
+        for t in (5, 33):
+            top = torch.tensor([t])  # int64, on the host
+            got = pre.batch(batch, top=top)
+            want = through_the_wrappers(pre, batch, top)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (route, t)
+
+
+@pytest.mark.parametrize("route", list(RECORD_ROUTES))
+def test_records_on_four_lane_streams(cuda, route):
+    """``StreamExecutor``'s four lanes: a record a lane's stream, made
+    once, and every frame's bits as one stream's."""
+    from vacv_tpu_torch.models import StreamExecutor
+
+    cfg, make = RECORD_ROUTES[route]
+    pre = Preprocessor(cfg, device="cuda")
+    frames = [f for k in range(4) for f in make(cuda, 20 + k)]
+    made, hits = record_counts()
+    ex = StreamExecutor(pre, depth=4)
+    got = [o for o in (ex.submit(f) for f in frames) if o is not None] + list(ex.drain())
+    torch.cuda.synchronize()
+    assert tuple(c - b for c, b in zip(record_counts(), (made, hits))) == (4, len(frames) - 4)
+    one = Preprocessor(cfg, device="cuda")
+    for k, (f, o) in enumerate(zip(frames, got)):
+        assert torch.equal(o, through_the_wrappers(one, f[None], None)[0]), (route, k)
+
+
+def test_two_preprocessors_alternating_keep_their_own_records(cuda):
+    """Two Preprocessors of one route and one of another on one stream, in
+    turns: each output as the wrappers give it."""
+    (c4, make4), (c5, make5) = RECORD_ROUTES["cuda_fused"], RECORD_ROUTES["cuda_warp"]
+    pres = [Preprocessor(c4, device="cuda"), Preprocessor(c5, device="cuda"),
+            Preprocessor(dataclasses.replace(c4, out_size=(64, 80)), device="cuda")]
+    made, _ = record_counts()
+    outs = []
+    for k in range(9):
+        pre = pres[k % 3]
+        batch = (make5 if pre._warp_route() else make4)(cuda, k)
+        top = torch.tensor(k * 5, dtype=torch.int32, device=cuda)
+        outs.append((pre.batch(batch, top=top), through_the_wrappers(pre, batch, top)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in outs)
+    assert record_counts()[0] - made == 3

@@ -305,16 +305,16 @@ def test_every_launch_site_counts_its_call_into_the_library(fake_library, spans)
         bgr = torch.zeros((2, 40, 64, 3), dtype=torch.uint8)
         geom = preprocess._geometry(bgr, VRect(2, 2, 60, 38), (16, 12), "linear", None)
         for form in ("moments", "two_launch", "resize_only"):
-            preprocess._launch(bgr, geom, None, None, None, None, True, True, "linear", "x",
-                               preprocess.Plan(form, 4))
+            preprocess._prepare(bgr, geom, None, None, None, None, True, True, "linear", "x",
+                                preprocess.Plan(form, 4)).run(bgr)
         nv = torch.zeros((2, 60, 64), dtype=torch.uint8)
         geom = preprocess._nv_geometry(nv, None, (16, 12), None)
         for plan in (preprocess.Plan("one_pass", 2, 6, 128), preprocess.Plan("two_launch")):
-            preprocess._launch(nv, geom, (False, False), None, None, None, True, True, "linear",
-                               "x", plan)
-        warp_affine._launch(torch.zeros((2, 3, 30, 40), dtype=torch.uint8), np.eye(2, 3), 20, 30,
-                            1, 0, 0.0, False, torch.empty((2, 3, 20, 30), dtype=torch.uint8),
-                            "auto", torch.tensor(3), 20)
+            preprocess._prepare(nv, geom, (False, False), None, None, None, True, True, "linear",
+                                "x", plan).run(nv)
+        planes, top = torch.zeros((2, 3, 30, 40), dtype=torch.uint8), torch.tensor(3)
+        warp_affine.prepare_warp_planes(planes, np.eye(2, 3), 20, 30, row0=top,
+                                        rows=20).run(planes, top)
         normalize._launch(torch.zeros((3, 20, 30), dtype=torch.uint8), "auto")
         yuv2bgr._launch(torch.zeros((20, 30), dtype=torch.uint8),
                         torch.zeros((10, 30), dtype=torch.uint8), False)
@@ -354,4 +354,5 @@ def test_the_cost_script_splits_a_small_cpu_run(tmp_path):
         assert r["spans"][root]["children"] == children
         assert r["residual_ns"] is not None and r["tracer_us"] > 0
         assert r["spans"][root]["self_net_us"] < r["spans"][root]["self_us"]
+        assert r["records"] == {"hits": 0, "made": 0, "hit_share": None}  # none on the CPU
     assert not trace.ON and config.record_kernel is count

@@ -18,6 +18,14 @@ its plain PyTorch version for a CPU tensor.  Anything else runs the chain
 of ops frame by frame; an NV chain decodes straight to CHW planes first,
 any other colour code goes through ``cvt_color``.
 
+Launch records: for a CUDA batch on the fused routes, and on the warp route
+with a planar tail, ``batch`` keeps the wrappers' prepared launches
+(``FusedLaunch``, ``WarpLaunch``) under the batch's ``launch_signature``
+(at most ``_RECORDS`` of them, the oldest dropped first).  A later batch of
+the same signature only runs them: no route choice, no geometry, no views,
+no plan or table lookup.  The same kernels get the same arguments, so the
+output is the same bits.
+
 Devices: a tensor is processed on the device it lies on; a numpy input
 goes to the ``device`` the Preprocessor was given, by default
 ``config.default_device()``: the card unless the caller asked for the CPU.
@@ -31,13 +39,15 @@ import numpy as np
 import torch
 
 from .. import config
+from ..core.device_tables import stream_key
 from ..core.image import Image, as_tensor
 from ..core.types import ColorCode, InterMode, Layout, VRect
 from ..ops.crop import crop, crop_dynamic, dynamic_slice, static_start
 from ..ops.cuda.preprocess import (
-    INTERP_MODES, preprocess_fused_batch, preprocess_fused_nv_batch, preprocess_fused_planes,
+    INTERP_MODES, prepare_fused_batch, prepare_fused_nv_batch, prepare_fused_planes,
+    preprocess_fused_batch, preprocess_fused_nv_batch, preprocess_fused_planes,
 )
-from ..ops.cuda.warp_affine import warp_planes_batch
+from ..ops.cuda.warp_affine import prepare_warp_planes, warp_planes_batch
 from ..ops.cvt_color import cvt_color, nv_code, nv_decode_channels
 from ..ops.dtype import as_torch_dtype
 from ..ops.normalize import normalize
@@ -46,6 +56,47 @@ from ..ops.warp_affine import invert_affine, warp_affine
 from ..utils import trace
 
 _FUSED_INTERP = {mode: name for name, mode in INTERP_MODES.items()}
+_RECORDS = 16  # launch records a Preprocessor keeps; the oldest goes first
+_UNSEEN = object()
+
+
+def launch_signature(arr, top) -> tuple:
+    """What a CUDA batch's launch record is made from, beside the
+    Preprocessor's own config: the backend preference, the batch's shape,
+    strides, type and device, the handle of the device's current stream,
+    and the kind of ``top``: None, an int (not its value) or a tensor's
+    type, device and size (not its value)."""
+    if top is None:
+        kind = None
+    elif isinstance(top, torch.Tensor):
+        kind = (top.dtype, top.get_device(), top.numel())
+    else:
+        kind = int
+    return (config.use_fused(), arr.shape, arr.stride(), arr.dtype, arr.get_device(),
+            stream_key(arr.device), kind)
+
+
+class _WarpRecord:
+    """A warp-route batch prepared: the warp's launch on the batch's bytes
+    from ``offset`` (and, for an int top, its clamped rows of ``row_bytes``
+    each), into the warped intermediate held here, then the planar tail's
+    launch.  Holding the intermediate is safe as ``FusedLaunch`` holds its
+    scratch: the warp kernel is an ordinary launch, so it writes the
+    intermediate only after the previous call's tail on this stream has
+    read it."""
+
+    __slots__ = ("warp", "tail", "warped", "offset", "row_bytes", "row_hi")
+
+    def __init__(self, warp, tail, warped, offset, row_bytes, row_hi):
+        self.warp, self.tail, self.warped = warp, tail, warped
+        self.offset, self.row_bytes, self.row_hi = offset, row_bytes, row_hi
+
+    def run(self, arr, top):
+        offset = self.offset
+        if self.row_bytes:  # an int top: its rows narrowed here, as _crop_args does
+            offset += min(max(int(top), 0), self.row_hi) * self.row_bytes
+            top = None
+        return self.tail.run(self.warp.run(arr, top, self.warped, offset))
 
 
 def _decode_color(img: Image, code) -> Image:
@@ -93,6 +144,7 @@ class Preprocessor:
             ColorCode(cfg.color_code)  # ValueError for an unknown code
         self.cfg = cfg
         self.device = torch.device(device if device is not None else config.default_device())
+        self._records: dict = {}  # launch_signature -> record, None for a route with none
 
     def _fused_geometry(self, shape, dtype):
         """(nv, left, top, cw, ch, oh, ow, interp) when the whole
@@ -164,17 +216,22 @@ class Preprocessor:
         nv = "_nv" if geom[0] is not None else ""
         return f"cuda_fused{nv}" if dev.type == "cuda" else f"fused{nv}_torch"
 
-    def _run_fused(self, batch, geom, top):
+    def _fused_call(self, geom, top):
+        """(nv, args, kwargs) of the fused wrapper's call for ``geom``
+        (``_fused_geometry``); ``nv`` picks the NV wrapper."""
         cfg = self.cfg
         nv, left, top0, cw, ch, oh, ow, interp = geom
-        rect = VRect(left, top0, left + cw, top0 + ch)
         kwargs = dict(top=top, mean=cfg.mean, stddev=cfg.stddev, normalize=cfg.normalize)
-        if nv is not None:
+        if nv is None:
+            kwargs["interp"] = interp
+        else:
             # Camera chain: decode → crop → resize → normalize in one call.
-            is_nv12, to_rgb = nv
-            return preprocess_fused_nv_batch(batch, rect, (ow, oh), is_nv12=is_nv12,
-                                             to_rgb=to_rgb, **kwargs)
-        return preprocess_fused_batch(batch, rect, (ow, oh), interp=interp, **kwargs)
+            kwargs["is_nv12"], kwargs["to_rgb"] = nv
+        return nv is not None, (VRect(left, top0, left + cw, top0 + ch), (ow, oh)), kwargs
+
+    def _run_fused(self, batch, geom, top):
+        nv, args, kwargs = self._fused_call(geom, top)
+        return (preprocess_fused_nv_batch if nv else preprocess_fused_batch)(batch, *args, **kwargs)
 
     def _crop_args(self, top):
         """(left, top, cw, ch, static) of the crop, or None for no crop:
@@ -228,26 +285,31 @@ class Preprocessor:
             img = warp_affine(img.change_layout(Layout.CHW), [list(r) for r in m], tuple(dsize))
         return self._tail(img)
 
-    def _planar_tail(self, warped) -> str | None:
+    def _planar_tail(self, dtype, channels) -> str | None:
         """The fused kernel's interpolation name when the tail of a warped
-        (N, C, h, w) batch runs as one ``preprocess_fused_planes`` call:
-        three u8 planes, an output size, CHW output and a linear, cubic or
-        nearest resize.  None keeps the per-frame ``_tail``."""
+        (N, ``channels``, h, w) batch of ``dtype`` runs as one
+        ``preprocess_fused_planes`` call: three u8 planes, an output size,
+        CHW output and a linear, cubic or nearest resize.  None keeps the
+        per-frame ``_tail``."""
         cfg = self.cfg
-        if warped.dtype != torch.uint8 or warped.shape[1] != 3:
+        if dtype != torch.uint8 or channels != 3:
             return None
         if cfg.out_size is None or cfg.out_layout != Layout.CHW:
             return None
         return _FUSED_INTERP.get(InterMode(cfg.interpolation))
 
-    def _run_warp(self, batch, top):
-        """BASELINE config 5: [NV decode →] crop the batch, warp all N·C
-        planes in one call (INTER_LINEAR, BORDER_CONSTANT, border value 0,
-        as the reference's ``warp_affine(img, m, dsize)``), then the tail:
-        one fused call over the warped batch (``_planar_tail``), else the
-        per-frame ``_tail``.  A tensor ``top`` goes to the warp as its
-        ``row0`` with the uncut rows: the kernel reads the crop at that top
-        and clamps it, so no gather copies the crop."""
+    @functools.cached_property
+    def _minv(self):
+        """The inverse of the config's warp matrix."""
+        m, _ = self.cfg.warp
+        return invert_affine(np.asarray([list(r) for r in m], dtype=np.float32))
+
+    def _warp_source(self, batch, top):
+        """(planes, row0, rows, gray) of the warp route: [NV decode →] the
+        batch's (N, C, H, W) planes, cropped; a tensor ``top`` leaves the
+        rows uncut and goes to the warp as its ``row0`` of ``rows`` rows:
+        the kernel reads the crop at that top and clamps it, so no gather
+        copies the crop."""
         cfg = self.cfg
         if cfg.color_code is not None:
             planes = torch.stack([_decode_color(Image(f, Layout.HWC), cfg.color_code)
@@ -269,14 +331,68 @@ class Preprocessor:
                 row0, rows = top, ch
             else:
                 planes = dynamic_slice(dynamic_slice(planes, 2, top, ch), 3, left, cw)
-        m, (w, h) = cfg.warp
-        minv = invert_affine(np.asarray([list(r) for r in m], dtype=np.float32))
-        out = warp_planes_batch(planes, minv, int(h), int(w), row0=row0, rows=rows)
-        interp = self._planar_tail(out)
+        return planes, row0, rows, gray
+
+    def _run_warp(self, batch, top):
+        """BASELINE config 5: [NV decode →] crop the batch, warp all N·C
+        planes in one call (INTER_LINEAR, BORDER_CONSTANT, border value 0,
+        as the reference's ``warp_affine(img, m, dsize)``), then the tail:
+        one fused call over the warped batch (``_planar_tail``), else the
+        per-frame ``_tail``."""
+        cfg = self.cfg
+        planes, row0, rows, gray = self._warp_source(batch, top)
+        _, (w, h) = cfg.warp
+        out = warp_planes_batch(planes, self._minv, int(h), int(w), row0=row0, rows=rows)
+        interp = self._planar_tail(out.dtype, out.shape[1])
         if interp is not None:
             return preprocess_fused_planes(out, cfg.out_size, interp=interp, mean=cfg.mean,
                                            stddev=cfg.stddev, normalize=cfg.normalize)
         return torch.stack([self._tail(Image(o[0] if gray else o, Layout.CHW)) for o in out])
+
+    def _prepare(self, arr, top):
+        """The launch record of CUDA batches like ``arr`` with tops like
+        ``top``: the fused route's ``FusedLaunch``, or a ``_WarpRecord`` on
+        the warp route when the batch is (N, H, W, 3) u8 with no colour code
+        (its tail then takes the planar call); None for any other route."""
+        if not self._warp_route():
+            geom = self._fused_geometry(tuple(arr.shape[1:]), arr.dtype)
+            if geom is None:
+                return None
+            nv, args, kwargs = self._fused_call(geom, top)
+            return (prepare_fused_nv_batch if nv else prepare_fused_batch)(arr, *args, **kwargs)
+        cfg = self.cfg
+        interp = self._planar_tail(arr.dtype, arr.shape[-1])
+        if cfg.color_code is not None or arr.ndim != 4 or interp is None:
+            return None
+        int_top = top is not None and not isinstance(top, torch.Tensor)
+        planes, row0, rows, _ = self._warp_source(arr, 0 if int_top else top)
+        _, (w, h) = cfg.warp
+        warp = prepare_warp_planes(planes, self._minv, int(h), int(w), row0=row0, rows=rows)
+        warped = torch.empty(warp.shape, dtype=torch.uint8, device=arr.device)
+        tail = prepare_fused_planes(warped, cfg.out_size, interp=interp, mean=cfg.mean,
+                                    stddev=cfg.stddev, normalize=cfg.normalize)
+        row_bytes = planes.stride(2) * planes.element_size() if int_top else 0
+        return _WarpRecord(warp, tail, warped, planes.data_ptr() - arr.data_ptr(), row_bytes,
+                           arr.shape[1] - planes.shape[2])
+
+    def _record(self, arr, top):
+        """The launch record of CUDA batch ``arr`` with ``top`` (``_prepare``),
+        made on the first batch of its ``launch_signature`` and counted as
+        ``pipeline.records_made``; each later batch of the signature is a
+        hit, counted as ``pipeline.record_hits``.  None where the batch's
+        route has no record."""
+        key = launch_signature(arr, top)
+        rec = self._records.get(key, _UNSEEN)
+        if rec is _UNSEEN:
+            rec = self._prepare(arr, top)
+            if len(self._records) >= _RECORDS:
+                del self._records[next(iter(self._records))]
+            self._records[key] = rec
+            if rec is not None:
+                trace.count("pipeline.records_made")
+        elif rec is not None:
+            trace.count("pipeline.record_hits")
+        return rec
 
     def batch(self, arr, top=None):
         """Run the pipeline over (N, H, W, C) frames, or (N, H·3/2, W) NV
@@ -287,10 +403,17 @@ class Preprocessor:
         on the device); the crop keeps its size and is clamped to the
         frame.
 
-        Traced as span ``pipeline.batch`` (``utils/trace.py``)."""
+        A CUDA batch runs its launch record (module docstring), made on the
+        first batch of its signature: counters ``pipeline.records_made`` and
+        ``pipeline.record_hits``.  Traced as span ``pipeline.batch``
+        (``utils/trace.py``)."""
         span = trace.begin("pipeline.batch") if trace.ON else None
         try:
             arr = as_tensor(arr, self.device)
+            if arr.is_cuda:
+                rec = self._record(arr, top)
+                if rec is not None:
+                    return rec.run(arr, top)
             if self._warp_route():
                 return self._run_warp(arr, top)
             geom = self._fused_geometry(tuple(arr.shape[1:]), arr.dtype)

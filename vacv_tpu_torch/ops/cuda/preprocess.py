@@ -25,7 +25,12 @@ Each wrapper launches the hand-written kernel
 CPU tensor it runs the plain PyTorch version beside it
 (``preprocess_fused_batch_torch`` / ``preprocess_fused_nv_batch_torch`` /
 ``preprocess_fused_planes_torch``), which the CPU tests and
-``chip_smoke.py`` hold the kernel against.
+``chip_smoke.py`` hold the kernel against.  On the card each wrapper is two
+parts: ``prepare_fused_batch`` / ``prepare_fused_nv_batch`` /
+``prepare_fused_planes`` do the checks, the geometry, the plan, the tap
+tables and the argument packing and return a ``FusedLaunch``, whose ``run``
+makes the call; ``models/pipeline.py`` keeps such records for the batches it
+sees again.
 
 The kernel reads resize weights as tap tables: for every output row
 (column) a start index and K weights, K = 2 (linear), 4 (cubic) or
@@ -468,31 +473,111 @@ def card_limits(device_index: int) -> CardLimits:
     return CardLimits(*out)
 
 
-def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
-            name, plan, planar=False):
-    """Launch the kernels of one call and count one launch of ``name``:
-    ``plan`` (``launch_plan``) "one_pass": the NV one-pass kernel alone;
-    "moments": the resize launch to u8, then the scale launch;
-    else launch 1 (the NV entry when ``nv`` is an (is_nv12, to_rgb) pair)
-    and, for "two_launch", launch 2.  ``planar``: ``batch`` is (N, 3, h,
-    w) planes, not (N, h, w, 3) frames."""
+class FusedLaunch:
+    """One call of the fused kernel, prepared (``_prepare``; the public
+    ``prepare_fused_*`` functions below): the library's entry point, its
+    arguments with every static field filled in, and the tap tables and
+    scratch that those arguments point at, held here so that they outlive
+    the caches they came from.
+
+    ``run(batch, top)`` is the per-call part: it allocates the output, puts
+    in the batch's and the output's addresses and the top, makes the call
+    into the kernel library, checks its return code and counts the route.
+    A record runs only batches of the shape, strides, type and device it was
+    prepared for, on the CUDA stream that was current then, with a top of
+    the kind it was prepared with: None, an int (clamped here each call) or
+    a tensor of the same type and device (an int32 top on the batch's device
+    goes in by its address).  ``models/pipeline.py`` keys its records by
+    exactly these.
+
+    The scratch (the moments form's u8 planes and moments, the one-pass
+    form's slots) is kept from call to call.  That is safe on the record's
+    one stream because the first kernel of every call is an ordinary launch,
+    not a programmatic dependent one: it starts only after the previous
+    call's kernels on that stream have finished reading the scratch.  That
+    is the same block reuse the caching allocator gives two calls on one
+    stream."""
+
+    __slots__ = ("name", "span", "device", "shape", "lib", "fn", "args", "what", "top_at",
+                 "top_mode", "top_hi", "norm", "norm_args", "held")
+
+    def __init__(self, name, device, shape):
+        self.name, self.span, self.device, self.shape = name, "ops." + name, device, shape
+        self.lib = self.fn = self.args = self.what = self.norm = self.norm_args = None
+        self.top_at, self.top_mode, self.top_hi, self.held = 0, None, 0, ()
+
+    def _bind(self, fn, front, rest, what):
+        """The entry point, and its arguments: ``front`` (the source and the
+        output at 2 and 3) then ``rest``, which starts with the taps."""
+        self.fn, self.args, self.what = fn, front + rest, what
+        self.top_at = len(front) + 2  # the taps' top, then the top's address
+
+    def run(self, batch, top=None):
+        """Launch the call on ``batch`` with ``top``; returns the (N, 3, oh,
+        ow) f32 output, a new tensor every call.  Traced as span
+        ``ops.<name>``."""
+        span = trace.begin(self.span) if trace.ON else None
+        try:
+            out = torch.empty(self.shape, dtype=torch.float32, device=self.device)
+            if self.fn is None:  # no frames
+                return out
+            args = list(self.args)
+            args[2] = batch.data_ptr()
+            args[3] = out.data_ptr()
+            if self.top_mode == "int":
+                args[self.top_at] = min(max(int(top), 0), self.top_hi)
+            elif self.top_mode is not None:
+                # The kernel reads the top from the device and clamps it there,
+                # so a moving ROI never synchronises the host.
+                if self.top_mode == "cast":
+                    top = top.reshape(()).to(device=self.device, dtype=torch.int32)
+                args[self.top_at + 1] = top.data_ptr()
+            call = trace.begin("native.call") if trace.ON else None
+            rc = self.fn(*args)
+            if call is not None:
+                trace.end(call)
+            trace.count("native.calls")
+            build.check(self.lib, rc, self.what)
+            if self.norm is not None:
+                args = list(self.norm_args)
+                args[2] = out.data_ptr()
+                call = trace.begin("native.call") if trace.ON else None
+                rc = self.norm(*args)
+                if call is not None:
+                    trace.end(call)
+                trace.count("native.calls")
+                build.check(self.lib, rc, f"{self.name} normalize kernel")
+            config.record_kernel(self.name)
+            return out
+        finally:
+            if span is not None:
+                trace.end(span)
+
+
+def _prepare(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp, name, plan,
+             planar=False) -> FusedLaunch:
+    """The record of one call of ``name`` (``FusedLaunch``), for batches
+    like ``batch`` and tops of ``top``'s kind: ``plan`` (``launch_plan``)
+    "one_pass": the NV one-pass kernel alone; "moments": the resize launch
+    to u8, then the scale launch; else launch 1 (the NV entry when ``nv`` is
+    an (is_nv12, to_rgb) pair) and, for "two_launch", launch 2.  ``planar``:
+    ``batch`` is (N, 3, h, w) planes, not (N, h, w, 3) frames."""
     n, h, w, left, top0, cw, ch, oh, ow = geom
     if not batch.is_contiguous():
         raise ValueError("fused preprocess kernel needs a contiguous batch")
     if n > _MAX_FRAMES:
         raise ValueError(f"fused preprocess kernel takes at most {_MAX_FRAMES} frames")
     dev = batch.device
-    out = torch.empty((n, 3, oh, ow), dtype=torch.float32, device=dev)
+    rec = FusedLaunch(name, dev, (n, 3, oh, ow))
     if n == 0:
-        return out
-    top_ptr = None
+        return rec
     if isinstance(top, torch.Tensor):
-        # The kernel reads the top from the device and clamps it there,
-        # so a moving ROI never synchronises the host.
-        top_dev = top.reshape(()).to(device=dev, dtype=torch.int32)
-        top_ptr = top_dev.data_ptr()
+        same = top.dtype == torch.int32 and top.device == dev
+        rec.top_mode = "device" if same else "cast"
+    elif top is not None:
+        rec.top_mode, rec.top_hi = "int", h - ch
     else:
-        top0 = _clamped_top(top, top0, h, ch, dev)
+        top0 = _clamped_top(None, top0, h, ch, dev)
     ys, yw = _device_taps(ch, oh, interp, dev)
     xs, xw = _device_taps(cw, ow, interp, dev)
     mean_s, std_s = _static_stats(mean), _static_stats(stddev)
@@ -501,71 +586,56 @@ def _launch(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp,
     stats = (*(mean_s or zeros), *(std_s or zeros))
     have = (int(mean_s is not None), int(std_s is not None))
     lib, resize, moments, nv_resize, norm, one_pass, _ = _entry_points()
-    stream = stream_key(dev)
-    taps = (left, ch, top0, top_ptr, oh, ow, ys.data_ptr(), yw.data_ptr(), yw.shape[1],
+    rec.lib, rec.held = lib, (ys, yw, xs, xw)
+    head = (dev.index, stream_key(dev), None, None)  # the source and the output: per call
+    taps = (left, ch, top0, None, oh, ow, ys.data_ptr(), yw.data_ptr(), yw.shape[1],
             xs.data_ptr(), xw.data_ptr(), xw.shape[1])
     eps = u8_eps(INTERP_MODES[interp])
     if plan.form == "one_pass":
         # each block's moments, 6 x 8 bytes
         slots = torch.empty(n * plan.blocks * 6, dtype=torch.int64, device=dev)
-        args = (dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *map(int, nv),
-                *taps, eps, plan.blocks, plan.rows, plan.chan, *have, int(plan.stream),
-                slots.data_ptr(), *stats)
-        span = trace.begin("native.call") if trace.ON else None
-        rc = one_pass(*args)
-        if span is not None:
-            trace.end(span)
-        trace.count("native.calls")
-        build.check(lib, rc, f"{name} one-pass kernel")
-        config.record_kernel(name)
-        return out
+        rec.held += (slots,)
+        rec._bind(one_pass, head + (n, h, w, *map(int, nv)),
+                  taps + (eps, plan.blocks, plan.rows, plan.chan, *have, int(plan.stream),
+                          slots.data_ptr(), *stats), f"{name} one-pass kernel")
+        return rec
     if plan.form == "moments":
         plane, parts = oh * ow, -(-ow // 32) * -(-oh // 8)
         # the u8 planes, then each resize block's moments (6 x 8 bytes) at a 16-byte boundary
         at = -(-n * 3 * plane // 16) * 16
         scratch = torch.empty(at + n * parts * 48, dtype=torch.uint8, device=dev)
-        args = (dev.index, stream, batch.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                scratch.data_ptr() + at, n, h, w, int(planar), *taps, eps, plan.blocks,
-                *have, *stats)
-        span = trace.begin("native.call") if trace.ON else None
-        rc = moments(*args)
-        if span is not None:
-            trace.end(span)
-        trace.count("native.calls")
-        build.check(lib, rc, f"{name} moments kernels")
-        config.record_kernel(name)
-        return out
+        rec.held += (scratch,)
+        rec._bind(moments, head + (scratch.data_ptr(), scratch.data_ptr() + at, n, h, w,
+                                   int(planar)),
+                  taps + (eps, plan.blocks, *have, *stats), f"{name} moments kernels")
+        return rec
     norm_stats = (*(mean_s if static_norm else zeros), *(std_s if static_norm else zeros))
-    if nv is not None:
-        fn = nv_resize
-        args = (dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, *map(int, nv),
-                *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
-    else:
-        fn = resize
-        args = (dev.index, stream, batch.data_ptr(), out.data_ptr(), n, h, w, int(planar),
-                *taps, int(trunc_u8), eps, int(static_norm), *norm_stats)
-    span = trace.begin("native.call") if trace.ON else None
-    rc = fn(*args)
-    if span is not None:
-        trace.end(span)
-    trace.count("native.calls")
-    build.check(lib, rc, f"{name} resize kernel")
+    front = head + (n, h, w, *(map(int, nv) if nv is not None else (int(planar),)))
+    rec._bind(nv_resize if nv is not None else resize, front,
+              taps + (int(trunc_u8), eps, int(static_norm), *norm_stats), f"{name} resize kernel")
     if plan.form == "two_launch":
-        args = (dev.index, stream, out.data_ptr(), n * 3, oh * ow, *have, *stats)
-        span = trace.begin("native.call") if trace.ON else None
-        rc = norm(*args)
-        if span is not None:
-            trace.end(span)
-        trace.count("native.calls")
-        build.check(lib, rc, f"{name} normalize kernel")
-    config.record_kernel(name)
-    return out
+        rec.norm, rec.norm_args = norm, (dev.index, head[1], None, n * 3, oh * ow, *have, *stats)
+    return rec
 
 
 def _plan(geom, source, lim, normalize, mean, stddev, trunc_u8, form="auto") -> Plan:
     self_stats = _static_stats(mean) is None or _static_stats(stddev) is None
     return launch_plan(geom[0], geom[-2], geom[-1], lim, source=source, normalize=bool(normalize),
                        self_stats=self_stats, trunc_u8=bool(trunc_u8), form=form)
+
+
+def prepare_fused_batch(batch, crop_rect=None, out_size=(224, 224), *, top=None, mean=None,
+                        stddev=None, normalize=True, trunc_u8=True,
+                        interp="linear") -> FusedLaunch:
+    """``preprocess_fused_batch``'s work on a CUDA batch that does not
+    depend on the batch's data or the top's value, done ahead: the checks,
+    the geometry, the plan, the tap tables and the arguments.  Its ``run(batch,
+    top)`` launches it (``FusedLaunch``).  Raises ValueError as
+    ``preprocess_fused_batch`` does."""
+    geom = _geometry(batch, crop_rect, out_size, interp, top)
+    plan = _plan(geom, "bgr", card_limits(batch.device.index), normalize, mean, stddev, trunc_u8)
+    return _prepare(batch, geom, None, top, mean, stddev, normalize, trunc_u8, interp,
+                    "preprocess_fused", plan)
 
 
 def preprocess_fused_batch(
@@ -590,20 +660,16 @@ def preprocess_fused_batch(
     ``"nearest"``.  Returns (N, 3, oh, ow) f32 on the batch's device.
 
     A CUDA batch launches the kernel (counted as ``"preprocess_fused"``)
-    or raises; a CPU batch runs the plain version (counted as
-    ``"preprocess_fused_torch"``).  Raises ValueError for inputs the
-    kernel does not take.
+    or raises: ``prepare_fused_batch``, then its ``run``.  A CPU batch runs
+    the plain version (counted as ``"preprocess_fused_torch"``).  Raises
+    ValueError for inputs the kernel does not take.
     """
-    span = (trace.begin("ops.preprocess_fused" if batch.is_cuda
-                        else "ops.preprocess_fused_torch") if trace.ON else None)
+    kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize, trunc_u8=trunc_u8,
+                  interp=interp)
+    if batch.device.type == "cuda":
+        return prepare_fused_batch(batch, crop_rect, out_size, **kwargs).run(batch, top)
+    span = trace.begin("ops.preprocess_fused_torch") if trace.ON else None
     try:
-        kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
-                      trunc_u8=trunc_u8, interp=interp)
-        if batch.device.type == "cuda":
-            geom = _geometry(batch, crop_rect, out_size, interp, top)
-            plan = _plan(geom, "bgr", card_limits(batch.device.index), normalize, mean, stddev,
-                         trunc_u8)
-            return _launch(batch, geom, None, name="preprocess_fused", plan=plan, **kwargs)
         if batch.device.type != "cpu":
             raise ValueError(f"no fused preprocess route for device {batch.device}")
         out = preprocess_fused_batch_torch(batch, crop_rect, out_size, **kwargs)
@@ -612,6 +678,18 @@ def preprocess_fused_batch(
     finally:
         if span is not None:
             trace.end(span)
+
+
+def prepare_fused_nv_batch(batch, crop_rect=None, out_size=(224, 224), *, is_nv12=False,
+                           to_rgb=False, top=None, mean=None, stddev=None, normalize=True,
+                           trunc_u8=True, form="auto") -> FusedLaunch:
+    """``preprocess_fused_nv_batch``'s work on a CUDA batch done ahead, as
+    ``prepare_fused_batch``; raises ValueError as that wrapper does."""
+    geom = _nv_geometry(batch, crop_rect, out_size, top)
+    plan = _plan(geom, "nv", card_limits(batch.device.index), normalize, mean, stddev, trunc_u8,
+                 form)
+    return _prepare(batch, geom, (is_nv12, to_rgb), top, mean, stddev, normalize, trunc_u8,
+                    "linear", "preprocess_fused_nv", plan)
 
 
 def preprocess_fused_nv_batch(
@@ -640,34 +718,40 @@ def preprocess_fused_nv_batch(
     or "two_launch" form (``launch_plan``).
 
     A CUDA batch launches the kernel (counted as
-    ``"preprocess_fused_nv"``) or raises; a CPU batch runs the plain
-    version (counted as ``"preprocess_fused_nv_torch"``).  Raises
-    ValueError for inputs the kernel does not take (not u8 rank 3, rows
-    not a multiple of 3, an odd width, a crop outside the frame) and for
-    a form that cannot serve the call.
+    ``"preprocess_fused_nv"``) or raises: ``prepare_fused_nv_batch``, then
+    its ``run``.  A CPU batch runs the plain version (counted as
+    ``"preprocess_fused_nv_torch"``).  Raises ValueError for inputs the
+    kernel does not take (not u8 rank 3, rows not a multiple of 3, an odd
+    width, a crop outside the frame) and for a form that cannot serve the
+    call.
     """
-    span = (trace.begin("ops.preprocess_fused_nv" if batch.is_cuda
-                        else "ops.preprocess_fused_nv_torch") if trace.ON else None)
+    kwargs = dict(is_nv12=is_nv12, to_rgb=to_rgb, top=top, mean=mean, stddev=stddev,
+                  normalize=normalize, trunc_u8=trunc_u8)
+    if batch.device.type == "cuda":
+        return prepare_fused_nv_batch(batch, crop_rect, out_size, form=form,
+                                      **kwargs).run(batch, top)
+    span = trace.begin("ops.preprocess_fused_nv_torch") if trace.ON else None
     try:
-        kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize,
-                      trunc_u8=trunc_u8)
-        if batch.device.type == "cuda":
-            geom = _nv_geometry(batch, crop_rect, out_size, top)
-            plan = _plan(geom, "nv", card_limits(batch.device.index), normalize, mean, stddev,
-                         trunc_u8, form)
-            return _launch(batch, geom, (is_nv12, to_rgb), interp="linear",
-                           name="preprocess_fused_nv", plan=plan, **kwargs)
         if batch.device.type != "cpu":
             raise ValueError(f"no fused NV preprocess route for device {batch.device}")
         if form not in FORMS:
             raise ValueError(f"NV form must be one of {FORMS}, got {form!r}")
-        out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, is_nv12=is_nv12,
-                                              to_rgb=to_rgb, **kwargs)
+        out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, **kwargs)
         config.record_kernel("preprocess_fused_nv_torch")
         return out
     finally:
         if span is not None:
             trace.end(span)
+
+
+def prepare_fused_planes(planes, out_size, *, interp="linear", mean=None, stddev=None,
+                         normalize=True) -> FusedLaunch:
+    """``preprocess_fused_planes``' work on CUDA planes done ahead, as
+    ``prepare_fused_batch``; raises ValueError as that wrapper does."""
+    geom = _planes_geometry(planes, out_size, interp)
+    plan = _plan(geom, "planar", card_limits(planes.device.index), normalize, mean, stddev, True)
+    return _prepare(planes, geom, None, None, mean, stddev, normalize, True, interp,
+                    "preprocess_fused_planar", plan, planar=True)
 
 
 def preprocess_fused_planes(planes, out_size, *, interp="linear", mean=None, stddev=None,
@@ -684,20 +768,16 @@ def preprocess_fused_planes(planes, out_size, *, interp="linear", mean=None, std
     may come out one LSB apart from the chain's.
 
     A CUDA tensor (contiguous) launches the kernel, counted as
-    ``"preprocess_fused_planar"``, or raises; a CPU tensor runs the plain
-    version, counted as ``"preprocess_fused_planar_torch"``.  Raises
-    ValueError for inputs the kernel does not take (not (N, 3, h, w) u8, an
-    interpolation other than linear, cubic or nearest)."""
-    span = (trace.begin("ops.preprocess_fused_planar" if planes.is_cuda
-                        else "ops.preprocess_fused_planar_torch") if trace.ON else None)
+    ``"preprocess_fused_planar"``, or raises: ``prepare_fused_planes``, then
+    its ``run``.  A CPU tensor runs the plain version, counted as
+    ``"preprocess_fused_planar_torch"``.  Raises ValueError for inputs the
+    kernel does not take (not (N, 3, h, w) u8, an interpolation other than
+    linear, cubic or nearest)."""
+    kwargs = dict(interp=interp, mean=mean, stddev=stddev, normalize=normalize)
+    if planes.device.type == "cuda":
+        return prepare_fused_planes(planes, out_size, **kwargs).run(planes)
+    span = trace.begin("ops.preprocess_fused_planar_torch") if trace.ON else None
     try:
-        kwargs = dict(mean=mean, stddev=stddev, normalize=normalize, interp=interp)
-        if planes.device.type == "cuda":
-            geom = _planes_geometry(planes, out_size, interp)
-            plan = _plan(geom, "planar", card_limits(planes.device.index), normalize, mean,
-                         stddev, True)
-            return _launch(planes, geom, None, None, trunc_u8=True,
-                           name="preprocess_fused_planar", plan=plan, planar=True, **kwargs)
         if planes.device.type != "cpu":
             raise ValueError(f"no fused planar preprocess route for device {planes.device}")
         out = preprocess_fused_planes_torch(planes, out_size, **kwargs)

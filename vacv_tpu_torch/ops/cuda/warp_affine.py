@@ -13,7 +13,10 @@ On a CUDA tensor it launches the hand-written kernel
 ``warp_affine_f32.cu``), counted as ``"warp_affine"``, or raises: u8 and
 f32 directly, other float types through an f32 copy and
 narrowed on write-out.  On a CPU tensor it runs the plain version
-``warp_planes_batch_torch``, counted as ``"warp_affine_torch"``.
+``warp_planes_batch_torch``, counted as ``"warp_affine_torch"``.  On the card
+the wrapper is ``prepare_warp_planes`` (the checks and the argument packing,
+into a ``WarpLaunch``), then the record's ``run``; ``models/pipeline.py``
+keeps such records for the batches it sees again.
 
 ``row0``/``rows`` warp a crop of ``rows`` rows whose top is a 0-d integer
 tensor (a moving ROI that lies on the device): the kernel is given the
@@ -38,11 +41,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
 
 from ... import config
+from ...core.device_tables import stream_key
 from ...core.types import BorderMode, InterMode
 from ..crop import dynamic_slice
 from ..warp_affine import INTERPS, warp_epilogue, warp_planes_torch
@@ -183,11 +188,91 @@ def warp_planes_batch_torch(planes, minv, h_out: int, w_out: int, *, row0=None, 
     return warp_epilogue(res, interp, planes.dtype)
 
 
-def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out, path="auto",
-            row0=None, rows=None):
+class WarpLaunch:
+    """One warp call, prepared (``prepare_warp_planes``): the library's
+    entry point and its arguments with every static field filled in (the
+    shape and strides of the planes and of the output, the inverse matrix,
+    the interpolation, the border and the path).
+
+    ``run(planes, row0, out, offset)`` is the per-call part: it allocates
+    the output unless given one, puts in the source's address (``offset``
+    bytes past ``planes.data_ptr()``), the output's and the device top's,
+    makes the call into the kernel library, checks its return code and
+    counts the route.  A record runs only sources of the shape, strides,
+    type and device it was prepared for, into outputs of its strides, on the
+    CUDA stream that was current then, with a ``row0`` of the kind it was
+    prepared with (none, or a tensor of the same type and device; an int32
+    top on the card goes in by its address)."""
+
+    __slots__ = ("device", "shape", "dtype", "lib", "fn", "args", "top")
+
+    def __init__(self, device, shape, dtype):
+        self.device, self.shape, self.dtype = device, shape, dtype
+        self.lib = self.fn = self.args = self.top = None
+
+    def run(self, planes, row0=None, out=None, offset=0):
+        """Warp into ``out`` (a new tensor when None) and return it.  Traced
+        as span ``ops.warp_affine``."""
+        span = trace.begin("ops.warp_affine") if trace.ON else None
+        try:
+            if out is None:
+                out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+            if self.fn is None:  # an empty output
+                return out
+            args = list(self.args)
+            args[2] = planes.data_ptr() + offset
+            args[12] = out.data_ptr()
+            if self.top is not None:
+                # The kernel reads the top from the device and clamps it there.
+                if self.top == "cast":
+                    row0 = row0.reshape(()).to(device=self.device, dtype=torch.int32)
+                args[-2] = row0.data_ptr()
+            call = trace.begin("native.call") if trace.ON else None
+            rc = self.fn(*args)
+            if call is not None:
+                trace.end(call)
+            trace.count("native.calls")
+            build.check(self.lib, rc, "warp kernel")
+            config.record_kernel("warp_affine")
+            return out
+        finally:
+            if span is not None:
+                trace.end(span)
+
+
+def _check_out(planes, shape, out) -> None:
+    if (tuple(out.shape) != tuple(shape) or out.dtype != planes.dtype
+            or out.device != planes.device):
+        raise ValueError(f"out must be {tuple(shape)} {planes.dtype} on {planes.device}")
+
+
+def _output(planes, h_out, w_out, out):
+    """``out``, checked, or a new output of the planes' type."""
+    shape = (*planes.shape[:2], h_out, w_out)
+    if out is None:
+        return torch.empty(shape, dtype=planes.dtype, device=planes.device)
+    _check_out(planes, shape, out)
+    return out
+
+
+def prepare_warp_planes(planes, minv, h_out: int, w_out: int, *, row0=None, rows=None,
+                        interp=InterMode.INTER_LINEAR, border=BorderMode.BORDER_CONSTANT,
+                        border_value=0.0, edge_mode="opencv", out=None,
+                        path="auto") -> WarpLaunch:
+    """``warp_planes_batch``'s work on uint8 or float32 planes on the card
+    that does not depend on their data or the top's value, done ahead: the
+    checks and the arguments.  ``out``, if given, sets the output strides
+    the record writes.  Its ``run(planes, row0, out)`` launches it
+    (``WarpLaunch``).  Raises ValueError as ``warp_planes_batch`` does, and
+    for planes of another type."""
+    _check(planes, interp, border, row0, rows)
+    if planes.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"the warp kernel reads uint8 or float32, got {planes.dtype}")
+    shape = (*planes.shape[:2], h_out, w_out)
+    if out is not None:
+        _check_out(planes, shape, out)
     n, c, h_full, w = planes.shape
     h = h_full if rows is None else int(rows)
-    lib, fn = _entry_points()
     if path not in PATHS:
         raise ValueError(f"warp path must be one of {PATHS}, got {path!r}")
     if n * -(-c // GROUP) > _MAX_GRID_Z:
@@ -197,29 +282,24 @@ def _launch(planes, minv, h_out, w_out, interp, border, bv, vacv, out, path="aut
     if min(planes.stride()) < 0:
         raise ValueError("warp kernel needs non-negative source strides")
     dev = planes.device
-    if out.numel() == 0 or planes.numel() == 0:
-        if out.numel():
+    rec = WarpLaunch(dev, shape, planes.dtype)
+    if math.prod(shape) == 0 or planes.numel() == 0:
+        if math.prod(shape):
             raise ValueError("warp of an empty image")
-        return out
-    top = None
+        return rec
+    if out is None:
+        strides = (c * h_out * w_out, h_out * w_out, w_out, 1)  # a new contiguous output's
+    else:
+        strides = out.stride()
     if row0 is not None:
-        # The kernel reads the top from the device and clamps it there.
-        top = row0.reshape(()).to(device=dev, dtype=torch.int32)
+        rec.top = "device" if row0.dtype == torch.int32 and row0.device == dev else "cast"
     m = np.asarray(minv, np.float32).reshape(6)
-    args = (dev.index, torch.cuda.current_stream(dev).cuda_stream,
-            planes.data_ptr(), int(planes.dtype == torch.uint8), n, c, h, w, *planes.stride(),
-            out.data_ptr(), h_out, w_out, *out.stride(),
-            *(float(v) for v in m), int(InterMode(interp)), int(BorderMode(border)),
-            float(bv), int(vacv), PATHS.index(path), None if top is None else top.data_ptr(),
-            h_full)
-    span = trace.begin("native.call") if trace.ON else None
-    rc = fn(*args)
-    if span is not None:
-        trace.end(span)
-    trace.count("native.calls")
-    build.check(lib, rc, "warp kernel")
-    config.record_kernel("warp_affine")
-    return out
+    rec.lib, rec.fn = _entry_points()
+    rec.args = (dev.index, stream_key(dev), None, int(planes.dtype == torch.uint8), n, c, h, w,
+                *planes.stride(), None, h_out, w_out, *strides, *(float(v) for v in m),
+                int(InterMode(interp)), int(BorderMode(border)), float(border_value),
+                int(edge_mode == "vacv"), PATHS.index(path), None, h_full)
+    return rec
 
 
 def warp_planes_batch(planes, minv, h_out: int, w_out: int, *, row0=None, rows=None,
@@ -236,36 +316,31 @@ def warp_planes_batch(planes, minv, h_out: int, w_out: int, *, row0=None, rows=N
     returned.  ``path`` (CUDA only) holds the
     kernel's paths to each other: "auto" lets each tile choose, "no_stage"
     never copies a tile's source box into shared memory, "edge_only" runs
-    every tile through the per-tap border rule.  Raises ValueError for
-    inputs the kernel does not take (not rank 4, an integer type other than
-    uint8, an interpolation other than linear/nearest/cubic, a border other
-    than CONSTANT/REPLICATE/REFLECT/WRAP/REFLECT_101, an unknown path, a
-    top that is not one integer, a crop taller than the planes)."""
-    span = (trace.begin("ops.warp_affine" if planes.is_cuda
-                        else "ops.warp_affine_torch") if trace.ON else None)
+    every tile through the per-tap border rule.  On the card: u8 and f32
+    planes are ``prepare_warp_planes``, then its ``run``.  Raises ValueError
+    for inputs the kernel does not take (not rank 4, an integer type other
+    than uint8, an interpolation other than linear/nearest/cubic, a border
+    other than CONSTANT/REPLICATE/REFLECT/WRAP/REFLECT_101, an unknown path,
+    a top that is not one integer, a crop taller than the planes)."""
+    kwargs = dict(row0=row0, rows=rows, interp=interp, border=border, border_value=border_value,
+                  edge_mode=edge_mode)
+    if planes.device.type == "cuda":
+        if planes.dtype in (torch.uint8, torch.float32):
+            return prepare_warp_planes(planes, minv, h_out, w_out, out=out, path=path,
+                                       **kwargs).run(planes, row0, out)
+        _check(planes, interp, border, row0, rows)
+        out = _output(planes, h_out, w_out, out)
+        # f16 / bf16 / f64: warped in f32 and narrowed on write-out.
+        wide = planes.to(torch.float32)
+        return out.copy_(prepare_warp_planes(wide, minv, h_out, w_out, path=path,
+                                             **kwargs).run(wide, row0))
+    span = trace.begin("ops.warp_affine_torch") if trace.ON else None
     try:
         _check(planes, interp, border, row0, rows)
-        shape = planes.shape[:2] + (h_out, w_out)
-        if out is None:
-            out = torch.empty(shape, dtype=planes.dtype, device=planes.device)
-        elif (tuple(out.shape) != tuple(shape) or out.dtype != planes.dtype
-              or out.device != planes.device):
-            raise ValueError(f"out must be {tuple(shape)} {planes.dtype} on {planes.device}")
-        vacv = edge_mode == "vacv"
-        if planes.device.type == "cuda":
-            if planes.dtype in (torch.uint8, torch.float32):
-                return _launch(planes, minv, h_out, w_out, interp, border, border_value, vacv,
-                               out, path, row0, rows)
-            # f16 / bf16 / f64: warped in f32 and narrowed on write-out.
-            wide = torch.empty(shape, dtype=torch.float32, device=planes.device)
-            _launch(planes.to(torch.float32), minv, h_out, w_out, interp, border, border_value,
-                    vacv, wide, path, row0, rows)
-            return out.copy_(wide)
+        out = _output(planes, h_out, w_out, out)
         if planes.device.type != "cpu":
             raise ValueError(f"no warp route for device {planes.device}")
-        out.copy_(warp_planes_batch_torch(planes, minv, h_out, w_out, row0=row0, rows=rows,
-                                          interp=interp, border=border, border_value=border_value,
-                                          edge_mode=edge_mode))
+        out.copy_(warp_planes_batch_torch(planes, minv, h_out, w_out, **kwargs))
         config.record_kernel("warp_affine_torch")
         return out
     finally:

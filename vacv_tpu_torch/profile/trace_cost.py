@@ -26,6 +26,9 @@ off, on, and on with a probe, in turns:
   more span costs in place, and each span's self time there
   (``self_probed_us``) shows where that cost lands.
 - every block: the garbage collector's runs and time a call (``gc_us``).
+- all the timed blocks: the launch records' hits and the records made
+  (``records``; after the warm-up every batch should be a hit, so the spans
+  are the hit path's), and the tables made and library calls a call.
 
 Prints one JSON line a case and writes the list to ``--out``::
 
@@ -61,6 +64,7 @@ SMALL = {
     "config5": ((48, 64), VRect(2, 3, 62, 45), (_WARP, (40, 30)), (16, 12), 4, 2),
 }
 MODES = ("off", "on", "probe")
+_COUNTERS = ("pipeline.record_hits", "pipeline.records_made", "tables.made", "native.calls")
 
 
 class _Probe:
@@ -160,6 +164,7 @@ def measure(name, block, device, calls, rounds):
     gc.callbacks.append(gcs)
     spans, cost, probe = {}, 0, _Probe()
     probed = {}  # self ns a span name in the probe blocks
+    counted = {k: trace.counter(k) for k in _COUNTERS}
     for r in range(rounds):
         for mode in MODES[r % 3:] + MODES[:r % 3]:
             trace.reset()
@@ -186,6 +191,7 @@ def measure(name, block, device, calls, rounds):
             elif mode == "probe":
                 for k, v in snap["spans"].items():
                     probed[k] = probed.get(k, 0) + v["self_ns"]
+    counted = {k: trace.counter(k) - v for k, v in counted.items()}
     # the child spans a call, from one more block that keeps its events (whose
     # objects would bring the garbage collector into the timed blocks)
     trace.reset()
@@ -226,6 +232,10 @@ def measure(name, block, device, calls, rounds):
         "gc_us": {m: sum(t for _, t in v) / n / 1e3 for m, v in collected.items()},
     }
     out["explained_us"] = out["tracer_us"] + (residual or 0) * out["spans_per_call"] / 1e3
+    hits, made = counted["pipeline.record_hits"], counted["pipeline.records_made"]
+    out["records"] = {"hits": hits, "made": made,
+                      "hit_share": hits / (hits + made) if hits + made else None}
+    out["per_call"] = {k: counted[k] / n for k in ("tables.made", "native.calls")}
     return out
 
 
