@@ -71,6 +71,12 @@ def compare(samples, pool, cfg: dict, device) -> dict:
     return tally.numbers()
 
 
+def limits(cfg: dict, traffic: dict) -> dict:
+    """The limit of each number: the configuration's, and those of the
+    numbers a loop kind compares itself, in its traffic."""
+    return {**cfg["limits"], **traffic.get("limits", {})}
+
+
 def verdict(numbers: dict, limits: dict, failed: int) -> tuple[bool, dict]:
     """(correct, {name: {"value", "limit"}}) of the numbers compared."""
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}

@@ -16,7 +16,14 @@ mix of an existing kind is a data file and no code.
 
 Each loop returns a ``Run``: what was attempted and completed, the window,
 the outputs kept for the check (positions drawn from the seed) and, when
-traced, the ``trace.Recorder`` summary.
+traced, the ``trace.Recorder`` summary.  The inputs come from the
+configuration's chain (``manifest.chain``).
+
+A loop kind that ``LOOPS`` lacks is a module ``loopkinds/<loop>.py`` with
+``run(system, cfg, traffic, seed, seconds, trace, device) -> Run``, and
+optionally ``check(run, cfg, traffic, seed, device) -> numbers``, numbers
+of its own that the traffic's ``limits`` bound, and ``PER_CARD = True``
+for a loop run as one process a card (``ranks.py``).
 """
 from __future__ import annotations
 
@@ -24,11 +31,12 @@ import gc
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from . import inputs
+from . import manifest
 from .stats import arrival_schedule, rng, sample_positions
 from .trace import Recorder
 
@@ -48,6 +56,7 @@ class Run:
     late_s: list = field(default_factory=list)
     steps: int = 0
     pool: list = field(default_factory=list)      # the inputs the samples index
+    extra: dict = field(default_factory=dict)     # what a loop kind keeps for its own check
 
 
 def sync(device) -> None:
@@ -64,11 +73,17 @@ def settle() -> None:
     gc.freeze()
 
 
+def pool_salt(salt: int, k: int) -> int:
+    """The seed's salt of batch ``k`` of the pool drawn with ``salt``."""
+    return 100 * salt + k
+
+
 def make_pool(cfg: dict, traffic: dict, seed: int, device, salt: int = 0):
     """(pool of frame batches, their tops as 0-d int32 tensors, as ints)."""
     n, size = traffic["batch"], traffic["pool"]
-    pool = [inputs.frames(cfg, n, seed, 100 * salt + k, device) for k in range(size)]
-    tops = inputs.tops(cfg, size, seed, salt)
+    chain = manifest.chain(cfg)
+    pool = [chain.frames(cfg, n, seed, pool_salt(salt, k), device) for k in range(size)]
+    tops = chain.tops(cfg, size, seed, salt)
     dev_tops = [torch.tensor(t, dtype=torch.int32, device=device) for t in tops]
     return pool, dev_tops, tops
 
@@ -143,7 +158,7 @@ def served(system, cfg: dict, traffic: dict, seed: int, seconds: float, trace: b
 
     cuda = torch.device(device).type == "cuda"
     size = traffic["pool"]
-    frames = inputs.frames(cfg, size, seed, 0, device)
+    frames = manifest.chain(cfg).frames(cfg, size, seed, 0, device)
     system.check_route(frames[:1])
     host = [f.cpu().numpy() for f in frames]  # pageable frames, as a camera delivers
     del frames
@@ -235,3 +250,12 @@ def served(system, cfg: dict, traffic: dict, seed: int, seconds: float, trace: b
 
 
 LOOPS = {"resident": resident, "served": served}
+
+
+def find(name: str):
+    """The loop kind a traffic names: a namespace with ``run`` (and the
+    optional ``check`` and ``PER_CARD``) for a kind of ``LOOPS``, else the
+    module ``loopkinds/<name>.py``."""
+    if name in LOOPS:
+        return SimpleNamespace(run=LOOPS[name])
+    return manifest.module("loopkinds", name)

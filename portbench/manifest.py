@@ -4,7 +4,9 @@ A cell (an entry of ``workloads``) names its configuration, whose file the
 ``configs`` entry gives, and its traffic, ``traffic/<name>.json``.  A
 per-layer metric's reader is ``metrics/<name>.py``; it belongs to a cell
 when its ``workloads`` list the cell or, without that key, when the cell
-reports the end-to-end metric it ``moves``.
+reports the end-to-end metric it ``moves``.  A configuration's ``chain``
+names ``chains/<chain>.py`` (``crop_resize`` when it names none), and a
+traffic's ``loop``, when ``loops.LOOPS`` lacks it, ``loopkinds/<loop>.py``.
 """
 from __future__ import annotations
 
@@ -52,10 +54,27 @@ def per_layer(bench: dict, cell_name: str) -> list[dict]:
             if cell_name in m.get("workloads", ()) or ("workloads" not in m and m["moves"] in e2e)]
 
 
+def module(folder: str, name: str):
+    """``<folder>/<name>.py`` of the harness, loaded by its file."""
+    path = HERE / folder / f"{name}.py"
+    if not path.is_file():
+        raise KeyError(f"no {folder}/{name}.py in {HERE}")
+    spec = importlib.util.spec_from_file_location(f"portbench.{folder}.{name}", path)
+    loaded = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(loaded)
+    return loaded
+
+
 def reader(name: str):
     """The ``read(run)`` function of ``metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench.metrics.{name}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return module("metrics", name).read
+
+
+DEFAULT_CHAIN = "crop_resize"
+
+
+def chain(cfg: dict):
+    """The module of a configuration's chain: its inputs, the program and
+    the control, the reference, the comparison and the least bytes
+    (``chains/crop_resize.py`` lists the names a chain defines)."""
+    return module("chains", cfg.get("chain") or DEFAULT_CHAIN)

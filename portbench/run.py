@@ -53,27 +53,47 @@ class Result:
         self.trace = run.trace
 
 
-def execute(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
-            device="cuda", system: str = "program"):
-    """(Run, numbers compared) of one run of a cell: the loop its traffic
-    names, then the check.  The peak memory is read before the reference
-    runs; ``run.peak_bytes`` holds it."""
+def one(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, device="cuda",
+        system: str = "program"):
+    """(Run, numbers compared) of this process's part of a run: the loop its
+    traffic names over the system its configuration's chain builds, then
+    the chain's check and the loop's own.  The peak memory is read before
+    the reference runs; ``run.peak_bytes`` holds it."""
     import torch
 
-    from . import check, loops, systems
+    from . import loops, manifest
 
+    chain = manifest.chain(cfg)
+    loop = loops.find(traffic["loop"])
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     from vacv_tpu_torch import config
 
-    sut = systems.build(system, cfg, device)
+    sut = chain.system(system, cfg, device)
     with config.device(torch.device(device).type):  # where the host frames go
-        run = loops.LOOPS[traffic["loop"]](sut, cfg, traffic, seed, seconds, trace, device)
+        run = loop.run(sut, cfg, traffic, seed, seconds, trace, device)
     run.peak_bytes = torch.cuda.max_memory_allocated() if cuda else 0
     del sut
-    numbers = check.compare(run.samples, run.pool, cfg, device)
+    numbers = chain.compare(run.samples, run.pool, cfg, device)
+    if hasattr(loop, "check"):
+        numbers.update(loop.check(run, cfg, traffic, seed, device))
     return run, numbers
+
+
+def execute(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
+            device="cuda", system: str = "program"):
+    """(Run, numbers compared) of one run of a cell.  A loop kind run one
+    process a card (``PER_CARD``) on more than one card goes through
+    ``ranks.launch``: the Run is rank 0's, each number the worst over the
+    ranks."""
+    from . import loops
+
+    if cell["chips"] > 1 and getattr(loops.find(traffic["loop"]), "PER_CARD", False):
+        from . import ranks
+
+        return ranks.launch(cell["chips"], cfg, traffic, seed, seconds, trace, device, system)
+    return one(cfg, traffic, seed, seconds, trace, device, system)
 
 
 def main(argv=None) -> int:
@@ -84,7 +104,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
-    from . import check, manifest
+    from . import manifest
 
     bench = manifest.load()
     cell = manifest.cell(bench, args.workload)
@@ -93,11 +113,21 @@ def main(argv=None) -> int:
     import torch
 
     run, numbers = execute(cell, cfg, traffic, args.seed, args.seconds, bool(args.trace))
+    return report(bench, cell, cfg, traffic, run, numbers, bool(args.trace),
+                  torch.cuda.get_device_name(0))
+
+
+def report(bench: dict, cell: dict, cfg: dict, traffic: dict, run, numbers: dict, trace: bool,
+           kind: str) -> int:
+    """Print a run's result line, and the numbers compared as the last
+    lines of standard error; 1 and no result when the process has loaded a
+    module the port must not."""
+    from . import check, manifest
+
     check_s = time.time() - run.start_epoch - run.elapsed_s
-    kind = torch.cuda.get_device_name(0)
-    correct, checks = check.verdict(numbers, cfg["limits"], run.failed)
+    correct, checks = check.verdict(numbers, check.limits(cfg, traffic), run.failed)
     result = Result(run, cfg, traffic, kind, run.start_epoch - STARTED)
-    wanted = manifest.per_layer(bench, cell["name"]) if args.trace else \
+    wanted = manifest.per_layer(bench, cell["name"]) if trace else \
         manifest.end_to_end(bench, cell["name"])
     metrics = {}
     for m in wanted:
@@ -109,7 +139,7 @@ def main(argv=None) -> int:
     line = {"correct": correct, "attempted": run.attempted, "failed": run.failed,
             "metrics": metrics, "device": device}
     t = run.trace and run.trace["timeline"]
-    if args.trace and t:
+    if trace and t:
         device["busy_s"] = t["busy_s"]
         device["window_s"] = t["window_s"]
         line["breakdown"] = {
@@ -118,6 +148,8 @@ def main(argv=None) -> int:
         }
         line["trace_counts"] = {k: t[k] for k in ("span_counts", "device_events",
                                                    "launched_in_spans", "profiler_start_s")}
+    if "ranks" in run.extra:
+        line["ranks"] = run.extra["ranks"]
     line["checks"] = checks
     found = forbidden_modules()
     if found:

@@ -34,7 +34,7 @@ def main(argv=None) -> int:
 
     from vacv_tpu_torch import config
 
-    from . import loops, manifest, systems
+    from . import loops, manifest
     from .run import require_cards
     from .stats import percentile
 
@@ -42,7 +42,7 @@ def main(argv=None) -> int:
     cell = manifest.cell(bench, args.workload)
     cfg, traffic = manifest.config(bench, cell), manifest.traffic(cell)
     require_cards(1)
-    sut = systems.build("program", cfg, "cuda")
+    sut = manifest.chain(cfg).system("program", cfg, "cuda")
     knee = None
     for cams in (int(c) for c in args.cameras.split(",")):
         t = dict(traffic, cameras=cams, trace_items=0)

@@ -1,10 +1,13 @@
-"""The system a cell drives: the program, or the control in its place.
+"""The system a cell of the ``crop_resize`` chain drives: the program, or
+the control in its place.
 
 ``program`` is ``vacv_tpu_torch``'s ``Preprocessor`` built as the
 configuration states it; it is the only thing the benchmark takes from the
 port.  ``control`` is the plain reference computed in bfloat16, the
 precision below the configuration's float32: ``calibrate.py`` puts it in the
-program's place to show that the check fails it.
+program's place to show that the check fails it.  Each gives what the
+loops call: ``check_route``, ``batch`` (resident), ``frame`` (served) and
+``sharded`` (the ``sharded`` loop kind's step).
 """
 from __future__ import annotations
 
@@ -48,6 +51,13 @@ class Program:
     def frame(self, frame):
         return self.pre(frame)
 
+    def sharded(self, mesh):
+        """A step of the batch-sharded deployment: ``Preprocessor.batched``
+        over ``mesh`` on this rank's shard (a ``DTensor``) at a top; the
+        step returns the rank's local output."""
+        run = self.pre.batched(mesh)
+        return lambda frames, top: run(frames, top=top).to_local()
+
 
 class Control:
     def __init__(self, cfg: dict, device):
@@ -62,6 +72,9 @@ class Control:
 
     def frame(self, frame):
         return self.batch(frame[None], None)[0]
+
+    def sharded(self, mesh):
+        return lambda frames, top: self.batch(frames.to_local(), top)
 
 
 SYSTEMS = {"program": Program, "control": Control}

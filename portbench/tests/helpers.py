@@ -20,11 +20,21 @@ def small_config(cfg: dict) -> dict:
     return cfg
 
 
+# A configuration and a traffic of a loop kind that no cell of BENCHMARK.json
+# runs yet (the per-card ``sharded`` loop, PERF.md §7), tested as the cells are.
+PAIRS = [("cfg5_warp_1440p", "sharded_b2x4")]
+
 
 def small_cell(name: str):
-    """(cell, config, traffic) of a cell, cut for the CPU."""
+    """(cell, config, traffic) of a cell of BENCHMARK.json, or of a
+    ``<config>.<traffic>`` pair of ``PAIRS``, cut for the CPU: one process
+    (a per-card loop runs as a world of one; ``ranked.py`` runs ranks)."""
     bench = manifest.load()
-    cell = manifest.cell(bench, name)
+    if name in CELLS:
+        cell = dict(manifest.cell(bench, name), chips=1)
+    else:
+        config, traffic_name = name.split(".", 1)
+        cell = {"name": name, "config": config, "traffic": traffic_name, "chips": 1}
     cfg = small_config(manifest.config(bench, cell))
     traffic = dict(manifest.traffic(cell))
     traffic.update(sample_gap=3, pool=min(traffic["pool"], 4), sample_share=0.5,
@@ -35,3 +45,4 @@ def small_cell(name: str):
 
 
 CELLS = [w["name"] for w in manifest.load()["workloads"]]
+CASES = CELLS + [f"{c}.{t}" for c, t in PAIRS]  # what the CPU tests run

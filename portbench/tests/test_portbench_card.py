@@ -1,4 +1,5 @@
-"""A short run of each one-card cell on the card (skips without one)."""
+"""A short run of each cell on the cards (skips without as many cards as
+the cell asks for)."""
 from __future__ import annotations
 
 import json
@@ -12,11 +13,11 @@ from portbench import manifest
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", [w["name"] for w in manifest.load()["workloads"]
-                                  if w["chips"] == 1])
+@pytest.mark.parametrize("cell", [w["name"] for w in manifest.load()["workloads"]])
 def test_a_short_run_is_correct_on_the_card(cell):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    chips = manifest.cell(manifest.load(), cell)["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA card(s)")
     proc = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", cell,
                            "--seed", "4242", "--seconds", "1", "--trace", "0"],
                           cwd=manifest.ROOT, capture_output=True, text=True, timeout=600)

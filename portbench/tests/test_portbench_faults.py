@@ -9,9 +9,9 @@ import pytest
 
 from portbench import check, run, systems
 from portbench.tests import faults
-from portbench.tests.helpers import CELLS, small_cell
+from portbench.tests.helpers import CASES, small_cell
 
-CASES = [(c, f) for c in CELLS for f in faults.FAULTS]
+RUNS = [(c, f) for c in CASES for f in faults.FAULTS]
 
 
 @pytest.fixture
@@ -20,10 +20,10 @@ def clean():
     importlib.reload(systems)
 
 
-@pytest.mark.parametrize("name,fault", CASES)
+@pytest.mark.parametrize("name,fault", RUNS)
 def test_a_planted_fault_is_not_correct(name, fault, clean):
     cell, cfg, traffic = small_cell(name)
     faults.plant(fault)
     r, numbers = run.execute(cell, cfg, traffic, 2**31 + 77, 0.3, False, "cpu")
-    ok, checks = check.verdict(numbers, cfg["limits"], r.failed)
+    ok, checks = check.verdict(numbers, check.limits(cfg, traffic), r.failed)
     assert not ok, checks

@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from portbench import manifest
+from portbench import loops, manifest
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -71,7 +71,7 @@ def test_cell_files_found_by_name(cell):
     assert w["chips"] in (1, 4)
     cfg = manifest.config(BENCH, w)
     traffic = manifest.traffic(w)
-    assert traffic["loop"] in ("resident", "served")
+    assert callable(loops.find(traffic["loop"]).run)
     assert set(cfg["limits"]) >= {"max_err_lsb", "off_share"}
     e2e = manifest.end_to_end(BENCH, cell)
     assert "setup_s" in {m["name"] for m in e2e} and len(e2e) >= 2
@@ -103,3 +103,18 @@ def test_pairs_unique_and_four_chip_share():
 def test_run_seconds_fit_a_full_check_of_24_cells():
     runs = 2 + 14 * 24
     assert runs * (BENCH["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
+
+
+@pytest.mark.parametrize("path", sorted((manifest.HERE / "traffic").glob("*.json")),
+                         ids=lambda p: p.stem)
+def test_every_traffic_names_a_loop_that_is_found(path):
+    loop = loops.find(json.loads(path.read_text())["loop"])
+    assert callable(loop.run)
+
+
+@pytest.mark.parametrize("path", sorted((manifest.HERE / "configs").glob("*.json")),
+                         ids=lambda p: p.stem)
+def test_every_config_names_a_chain_that_is_found(path):
+    chain = manifest.chain(json.loads(path.read_text()))
+    for name in ("frames", "tops", "system", "reference", "compare", "chain_bytes"):
+        assert callable(getattr(chain, name)), name

@@ -69,3 +69,23 @@ def test_the_program_agrees_with_the_reference_on_the_cpu(name):
     numbers = tally.numbers()
     assert numbers["off_share"] <= cfg["limits"]["off_share"]
     assert numbers["max_err_lsb"] <= cfg["limits"]["max_err_lsb"]
+
+
+@pytest.mark.parametrize("name", ["cfg4_fused_1080p", "cfg5_warp_1440p"])
+def test_the_default_chain_is_the_reference_chain_bit_for_bit(name):
+    """A configuration without ``chain`` makes the same frames and tops and
+    the same float64 reference, at its own size, as the harness's modules."""
+    from portbench import inputs, manifest
+
+    cfg = manifest.config(manifest.load(), {"config": name})
+    chain = manifest.chain(cfg)
+    seed = 2**31 + 3
+    frames = chain.frames(cfg, 1, seed, 0, "cpu")
+    assert torch.equal(frames, inputs.frames(cfg, 1, seed, 0, "cpu"))
+    tops = chain.tops(cfg, 3, seed, 1)
+    assert tops == inputs.tops(cfg, 3, seed, 1)
+    ref = chain.reference(frames, cfg, tops[0])
+    assert ref.dtype == torch.float64
+    assert torch.equal(ref, reference.chain(frames, cfg, tops[0])[0])
+    assert isinstance(chain.system("program", cfg, "cpu"), systems.Program)
+    assert isinstance(chain.system("control", cfg, "cpu"), systems.Control)

@@ -61,3 +61,13 @@ def test_idle_share_at_the_unprofiled_pace():
 def test_idle_share_reads_nothing_without_a_profile():
     summary = {"spans": {"pipeline.batch": [100, 0.5]}, "timeline": None, "section_s": 0.0}
     assert manifest.reader("device.idle_pct")(Result(Run(steps=100, elapsed_s=1.0), summary)) is None
+
+
+def test_collective_time_a_step_from_the_exchange_spans():
+    spans = [("mesh.all_reduce", 1_000_010.0, 1_000_030.0), ("mesh.all_reduce", 1_000_060.0,
+                                                                1_000_080.0)]
+    timeline = trace.reduce(TRACE, spans, WINDOW)  # kernels launched inside: a, b, a
+    result = Result(Run(steps=2, elapsed_s=1.0), {"spans": {}, "timeline": timeline})
+    assert manifest.reader("mesh.collective_us")(result) == pytest.approx(25e-6 / 2 * 1e6)
+    result = Result(Run(steps=2, elapsed_s=1.0), {"spans": {}, "timeline": None})
+    assert manifest.reader("mesh.collective_us")(result) is None

@@ -31,3 +31,12 @@ def test_config5_counts_the_crop_the_warp_then_resize_reads():
 
 def test_unknown_card_has_no_least_time():
     assert work.least_seconds(_cfg("cfg4_fused_1080p"), 32, "some other card") is None
+
+
+@pytest.mark.parametrize("name,frames,want", [("cfg4_fused_1080p", 32, 96_337_920),
+                                              ("cfg5_warp_1440p", 16, 55_587_840)])
+def test_a_config_without_a_chain_counts_through_the_default_chain(name, frames, want):
+    cfg = _cfg(name)
+    assert "chain" not in cfg
+    assert manifest.chain(cfg).chain_bytes(cfg, frames) == want == work.chain_bytes(cfg, frames)
+    assert work.least_seconds(cfg, frames, "NVIDIA H100 80GB HBM3") == want / 3.35e12

@@ -74,6 +74,10 @@ def peak_bytes_per_s(kind: str) -> float | None:
 
 
 def least_seconds(cfg: dict, frames: int, kind: str) -> float | None:
+    """The least time of ``frames`` inputs of the configuration's chain
+    (its ``chain_bytes``) on the card named ``kind``, or None."""
+    from . import manifest
+
     bw = peak_bytes_per_s(kind)
-    return None if bw is None else chain_bytes(cfg, frames) / bw
+    return None if bw is None else manifest.chain(cfg).chain_bytes(cfg, frames) / bw
 
