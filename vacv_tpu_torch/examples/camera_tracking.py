@@ -4,11 +4,12 @@ The counterpart of ``examples/camera_tracking.py``: a tracking camera
 loop whose crop window FOLLOWS a target from frame to frame.
 
 1. synthesize an NV21 camera stream with a drifting 48x48 target,
-2. find the target with ``match_template`` (TM_CCOEFF_NORMED, the
-   correlation kernel) and ``min_max_loc`` on the decoded frame,
-3. preprocess the frame's ROI through the fused NV kernel with the crop
-   top held on the device: the window moves without a host round trip,
-   and the decode → crop → resize → normalize chain stays one launch.
+2. track it with ``models.Tracker``: find the target with
+   ``match_template`` (TM_CCOEFF_NORMED, the correlation kernel) and
+   ``min_max_loc`` on the decoded frame, then preprocess the frame's ROI
+   through the fused NV kernel with the crop top held on the device: the
+   window moves without a host round trip, and on the card every frame
+   after the first is one CUDA graph replay.
 
 Run: ``python -m vacv_tpu_torch.examples.camera_tracking [--frames N]
 [--height H] [--width W]``; no cv2 is needed.
@@ -18,7 +19,6 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 TARGET = 48  # side of the square target, pixels
 
@@ -52,32 +52,23 @@ def track(n_frames=6, h=720, w=1280):
     frame's match is more than 2 px off.  Returns one dict a frame:
     ``found`` and ``truth`` (x, y), ``score``, the ROI ``top`` and the
     network input ``net_in`` (3, 224, 224) f32."""
-    from .. import COLOR_YUV2BGR_NV21, TM_CCOEFF_NORMED, VRect
-    from .. import cvt_color, match_template, min_max_loc
-    from ..core.image import as_tensor
-    from ..models import PreprocessConfig, Preprocessor
+    from ..models import Tracker
 
     frames, target, truth = make_stream(n_frames, h, w)
     roi_h = max(TARGET, 320 * h // 720)
-    pre = Preprocessor(PreprocessConfig(color_code=COLOR_YUV2BGR_NV21,
-                                        crop_rect=VRect(0, 0, w, roi_h), out_size=(224, 224)))
-    tmpl = as_tensor(target, pre.device)
+    tracker = Tracker(target, frame_hw=(h, w), roi_h=roi_h, out_size=(224, 224))
     results = []
     for i, (nv, (tx, ty)) in enumerate(zip(frames, truth)):
-        nv = as_tensor(nv, pre.device)
-        # 1. find the target in the decoded frame
-        resp = match_template(cvt_color(nv, COLOR_YUV2BGR_NV21), tmpl, TM_CCOEFF_NORMED)
-        _, score, _, (x, y) = min_max_loc(resp)
-        # 2. centre the window on it, clamped to the frame, on the device
-        top = torch.clamp(y - (roi_h - TARGET) // 2, 0, h - roi_h)
-        net_in = pre.batch(nv[None], top=top)[0]
+        net_in, (x, y), score = tracker.step(nv)
+        net_in = net_in[0].clone()  # kept past the tracker's next steps
+        top = int(tracker.top_of(y))
         found = (int(x), int(y))
         print(f"frame {i}: target at {found} (truth {(tx, ty)}), score={float(score):.3f}, "
-              f"roi_top={int(top)}, net_in {tuple(net_in.shape)} "
+              f"roi_top={top}, net_in {tuple(net_in.shape)} "
               f"mean={float(net_in.mean()):+.4f}", flush=True)
         if abs(found[0] - tx) > 2 or abs(found[1] - ty) > 2:
             raise RuntimeError(f"frame {i}: tracker lost the target")
-        results.append(dict(found=found, truth=(tx, ty), score=float(score), top=int(top),
+        results.append(dict(found=found, truth=(tx, ty), score=float(score), top=top,
                             net_in=net_in))
     print(f"tracked {len(frames)} frames, the fused NV kernel taking a moving top", flush=True)
     return results

@@ -1,2 +1,3 @@
 from .pipeline import PreprocessConfig, Preprocessor, slam_frontend_config
 from .serving import StreamExecutor, stream_map
+from .tracking import Tracker

@@ -114,18 +114,23 @@ def min_max_idx(src, mask=None):
     input's device; the indices are flat (row-major) positions, the first
     one on ties.  With a ``mask`` only its nonzero positions count; when
     it masks everything the values are NaN.
+
+    Nothing is read back, so a CUDA graph can capture the call: the values
+    come from the reductions themselves or from ``take``, never from
+    indexing by a 0-d tensor, which reads the index back to the host.
     """
     flat = as_image(src).data.to(torch.float32).reshape(-1)
     if mask is None:
-        min_idx, max_idx = torch.argmin(flat), torch.argmax(flat)
-        return flat[min_idx], flat[max_idx], min_idx, max_idx
+        min_val, min_idx = torch.min(flat, 0)
+        max_val, max_idx = torch.max(flat, 0)
+        return min_val, max_val, min_idx, max_idx
     m = as_image(mask).data.reshape(-1).to(flat.device) != 0
     big = torch.finfo(torch.float32).max
     min_idx = torch.argmin(torch.where(m, flat, big))
     max_idx = torch.argmax(torch.where(m, flat, -big))
     none = torch.logical_not(torch.any(m))
-    nan = torch.tensor(float("nan"), device=flat.device)
-    return (torch.where(none, nan, flat[min_idx]), torch.where(none, nan, flat[max_idx]),
+    nan = torch.full((), float("nan"), device=flat.device)
+    return (torch.where(none, nan, flat.take(min_idx)), torch.where(none, nan, flat.take(max_idx)),
             min_idx, max_idx)
 
 
