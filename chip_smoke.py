@@ -11,7 +11,8 @@ Phases, each printed as it runs:
    versions' float32 matmuls;
 2. build: the CUDA kernels from ``vacv_tpu_torch/csrc``, one ``nvcc`` per
    source started together, into ``build/vacv_tpu_torch/``, with nvcc's
-   ``-Xptxas -v`` lines;
+   ``-Xptxas -v`` lines, and the u8 linear warp kernels' registers and
+   spills (``warp_kernel`` and its 3-channel HWC form) on lines of their own;
 3. compare: every kernel against its plain PyTorch version on the card,
    at full width: the config-4 fused kernel (32 frames of 1080x1920, the
    BASELINE config-4 crop, 224x224 out) and odd frames, its moments form
@@ -114,8 +115,10 @@ Phases, each printed as it runs:
    with a device top, asserted); the planar tail's
    queued device time at 1 and 2 frames; the normalize
    kernel at (3, 1080, 1920) and (3, 224, 224), f32 and u8, and the warp
-   kernel at config 5 (linear, cubic, nearest, planar, f32) with the
-   kernels launched per call (one each, asserted), config 5's batch and
+   kernel at config 5 (linear at 2 and 16 frames, cubic, nearest, planar,
+   f32; the kernel each call launches, its ``warp.hwc3_launches`` and its
+   tiles by path) with the kernels launched per call (one each, asserted),
+   config 5's batch at 2 and 16 frames and
    the tracking frame by kernel, yuv2bgr at 1080p, 720p and 144x176 (warm
    and with its source out of L2) and the fused NV kernel at the camera batch (self and static
    statistics) and the tracking frame (one launch each, asserted), the
@@ -185,6 +188,7 @@ KERNELS = {
 # frames, crop (64, 36)-(2496, 1404), a rotated warp to 1216x684, 224 out,
 # two frames per device.
 H5, W5, BATCH5 = 1440, 2560, 2
+BATCH5_HOST = 16  # one 8-device host's batch: cfg5.resident's
 RECT5 = (64, 36, 2496, 1404)
 M5 = ((0.9, 0.03, 40.0), (-0.03, 0.9, 25.0))
 WARP5 = (1216, 684)  # (w, h)
@@ -244,9 +248,16 @@ def phase_build() -> None:
     b = build.library()
     how = f"built in {b.seconds:.1f} s" if b.log else "reused an earlier build"
     log(f"[build] {b.path.relative_to(build.BUILD_DIR.parent.parent)}: {how}")
-    for line in b.log.splitlines():
+    lines = b.log.splitlines()
+    for line in lines:
         if "ptxas info" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
+    # The u8 linear warp kernels' registers and spills, for PERF.md.
+    for i, line in enumerate(lines):
+        name = re.search(r"Function properties for (\w*warp_kernel(?:_hwc3|IhLi1E)\w*)", line)
+        if name:
+            used = next((x for x in lines[i + 2:i + 6] if "Used" in x), "")
+            log(f"[build] {name.group(1)}: {lines[i + 1].strip()}; {used.split(':', 1)[-1].strip()}")
 
 
 def check(label, got, want, kind) -> float:
@@ -1293,8 +1304,9 @@ kernel_names: dict = {}  # config-4 label -> the kernels the profiler saw
 def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     """The profiler's device time per call of the normalize kernel at the
     shapes the main paths and the table use, of the warp kernel at BASELINE
-    config 5's geometry, of one config-5 batch and one tracking frame by
-    kernel, of yuv2bgr at
+    config 5's geometry (2 frames, and linear at one host's 16), of one
+    config-5 batch (2 and 16 frames) and one tracking frame by kernel, of
+    yuv2bgr at
     1080p, 720p and 144x176 (warm, and with the source out of L2), of the
     fused NV kernel at the camera main path's batch (self and static
     statistics) and the tracking flow's frame, and the queued device time
@@ -1342,18 +1354,33 @@ def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     crop = batch[:, top:bottom, left:right].permute(0, 3, 1, 2)
     minv = vt.invert_affine(np.asarray(M5, np.float32))
     (w_out, h_out) = WARP5
-    measure("warp config 5 u8 linear CONSTANT", lambda: warp_planes_batch(crop, minv, h_out, w_out))
+
+    def measure_warp(label, src, **kw):
+        """``measure`` of ``warp_planes_batch(src, ...)``, with the form of
+        the kernel the call takes and ``warp.hwc3_launches`` a call."""
+        from vacv_tpu_torch.utils import trace
+
+        measure(label, lambda: warp_planes_batch(src, minv, h_out, w_out, **kw))
+        before = trace.counter("warp.hwc3_launches")
+        warp_planes_batch(src, minv, h_out, w_out, **kw)
+        log(f"[time]   {label}: {warp_form(src, kw.get('interp', vt.INTER_LINEAR))}, "
+            f"warp.hwc3_launches +{trace.counter('warp.hwc3_launches') - before} a call, tiles "
+            f"{warp_tiles(src, minv, h_out, w_out, kw)}")
+
+    measure_warp("warp config 5 u8 linear CONSTANT", crop)
     out["host enqueue of the warp, config 5 u8 linear CONSTANT"] = (
         min(host_us(lambda: warp_planes_batch(crop, minv, h_out, w_out)) for _ in range(2)), 0)
-    measure("warp config 5 u8 cubic REFLECT_101", lambda: warp_planes_batch(
-        crop, minv, h_out, w_out, interp=vt.INTER_CUBIC, border=vt.BORDER_REFLECT_101))
-    measure("warp config 5 u8 nearest REPLICATE", lambda: warp_planes_batch(
-        crop, minv, h_out, w_out, interp=vt.INTER_NEAREST, border=vt.BORDER_REPLICATE))
+    batch16 = make_batch(BATCH5_HOST, H5, W5, seed=71)
+    crop16 = batch16[:, top:bottom, left:right].permute(0, 3, 1, 2)
+    measure_warp(f"warp config 5 u8 linear CONSTANT, {BATCH5_HOST} frames", crop16)
+    measure_warp("warp config 5 u8 cubic REFLECT_101", crop, interp=vt.INTER_CUBIC,
+                 border=vt.BORDER_REFLECT_101)
+    measure_warp("warp config 5 u8 nearest REPLICATE", crop, interp=vt.INTER_NEAREST,
+                 border=vt.BORDER_REPLICATE)
     planar = crop.contiguous()
-    measure("warp config 5 u8 linear CONSTANT, planar source",
-            lambda: warp_planes_batch(planar, minv, h_out, w_out))
+    measure_warp("warp config 5 u8 linear CONSTANT, planar source", planar)
     crop_f = crop.float()  # the view's strides are kept: HWC f32
-    measure("warp config 5 f32 linear CONSTANT", lambda: warp_planes_batch(crop_f, minv, h_out, w_out))
+    measure_warp("warp config 5 f32 linear CONSTANT", crop_f)
     del planar, crop_f
 
     pre = Preprocessor(PreprocessConfig(crop_rect=VRect(*RECT5), warp=(M5, WARP5),
@@ -1372,6 +1399,13 @@ def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     out["config 5 normalize share"] = (norm, 0)
     out["config 5 warp share"] = (warp, 0)
     out["config 5 planar tail share"] = (planar, 0)
+    total, kernels = device_profile(lambda: pre.batch(batch16, top=dev_top), 10)
+    warp = sum(t for k, (t, _) in kernels.items() if "warp_kernel" in k)
+    log(f"[time] config 5 main path, {BATCH5_HOST} frames: {total:.2f} us device per batch, the "
+        f"warp {warp:.2f} us [{card}]")
+    out[f"config 5 main path, {BATCH5_HOST} frames"] = (total, sum(c for _, c in kernels.values()))
+    out[f"config 5 warp share, {BATCH5_HOST} frames"] = (warp, 0)
+    del batch16, crop16
     for name, run in (("int top", lambda: pre.batch(batch, top=top)),
                       ("device top", lambda: pre.batch(batch, top=dev_top))):
         total, kernels = device_profile(run, 10)
@@ -1456,6 +1490,23 @@ def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     return out
 
 
+def warp_form(src, interp) -> str:
+    """The warp kernel a call on ``src`` launches (``hwc3_form``; a tree
+    from before it has ``warp_kernel`` alone)."""
+    from vacv_tpu_torch.ops.cuda import warp_affine as wk
+
+    form = getattr(wk, "hwc3_form", None)
+    return "warp_kernel_hwc3" if form is not None and form(src, interp) else "warp_kernel"
+
+
+def warp_tiles(src, minv, h_out, w_out, kw) -> dict:
+    """``tile_paths`` of a warp call (``kw``: its interpolation)."""
+    import vacv_tpu_torch as vt
+    from vacv_tpu_torch.ops.cuda.warp_affine import tile_paths
+
+    return tile_paths(src, minv, h_out, w_out, kw.get("interp", vt.INTER_LINEAR))
+
+
 def time_forms_and_paths(card: str) -> None:
     """What each design choice of the two redesigned kernels is worth, by
     the profiler's device time: the normalize kernel's two launch forms at
@@ -1498,7 +1549,8 @@ def time_forms_and_paths(card: str) -> None:
             cold[path] = sum(t for k, (t, _) in device_profile(run_cold, 10)[1].items()
                              if "warp_kernel" in k)
         tiles = tile_paths(src, minv, h_out, w_out, kw.get("interp", vt.INTER_LINEAR))
-        log(f"[time] warp config 5 {name}: tiles by path {tiles}; device time by path switch: "
+        log(f"[time] warp config 5 {name}: {warp_form(src, kw.get('interp', vt.INTER_LINEAR))}, "
+            f"tiles by path {tiles}; device time by path switch: "
             + ", ".join(f"{k} {v:.2f} us" for k, v in times.items()) + "; with the source out of "
             "L2: " + ", ".join(f"{k} {fmt_us(v or None)}" for k, v in cold.items()) + f" [{card}]")
 
@@ -2462,20 +2514,28 @@ def phase_mesh(card: str) -> dict:
 
 def phase_examples(card: str) -> dict:
     """Both examples' ``main()`` on the card: the tracker within 2 px on
-    every frame (it raises otherwise), one launch of each of its kernels
-    a frame; the SLAM front end's sharded output equal to ``pre.batch``
-    bit for bit.  Returns the launches counted."""
+    every frame (it raises otherwise), its first frame run eagerly and then
+    captured ``Tracker.SLOTS`` times (each of its kernels counted once in
+    each), every later frame one graph replay; the SLAM front end's sharded
+    output equal to ``pre.batch`` bit for bit.  Returns the launches
+    counted."""
     from vacv_tpu_torch import config
     from vacv_tpu_torch.examples import camera_tracking, slam_frontend
+    from vacv_tpu_torch.models.tracking import Tracker
+    from vacv_tpu_torch.utils import trace
 
     config.reset_kernel_counts()
+    replays = trace.counter("track.graph_replays")
     results = camera_tracking.main([])
     torch.cuda.synchronize()
+    replays = trace.counter("track.graph_replays") - replays
     names = ("yuv2bgr", "match_corr", "window_sum", "preprocess_fused_nv")
     launches = {k: config.kernel_count(k) for k in names}
-    log(f"[examples] camera_tracking launches={launches} for {len(results)} frames")
-    require(launches == dict.fromkeys(names, len(results)) and len(results) == 6,
-            f"camera_tracking launches {launches}")
+    log(f"[examples] camera_tracking launches={launches}, graph replays {replays}, for "
+        f"{len(results)} frames")
+    require(launches == dict.fromkeys(names, 1 + Tracker.SLOTS) and len(results) == 6
+            and replays == len(results) - 1, f"camera_tracking launches {launches}, replays "
+            f"{replays}")
     require(all(abs(r["found"][0] - r["truth"][0]) <= 2 and abs(r["found"][1] - r["truth"][1]) <= 2
                 for r in results), "camera_tracking lost the target")
     require(all(r["net_in"].device.type == "cuda" for r in results), "camera_tracking off the card")

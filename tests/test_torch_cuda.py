@@ -9,7 +9,9 @@ yuv2bgr bit-exact; normalize to cosine >= 1-1e-6 and max-abs < 1e-4, in
 both launch forms, from aligned and misaligned bases, one kernel launch a
 call and the same bits on a second call; the warp kernel bit-exact on u8
 and f32 through each of its three paths (within 5e-3 on f32 in the older
-sweep); the correlation kernel
+sweep), its 3-channel u8 HWC form at config 5 (16 frames, both clamps of
+a device top), at every base alignment and under every border rule, and
+``warp.hwc3_launches`` against the kernel the profiler saw; the correlation kernel
 within 1e-5 of the largest response magnitude; the tensor-core probe
 bit-exact with the probe's integer operands and, on random bf16 operands,
 within 1e-5 of the largest sum of product magnitudes.  The tracer's
@@ -743,6 +745,134 @@ def test_warp_kernel_reads_a_device_top(cuda, top, dtype, layout):
     cut = planes[:, :, min(max(top, 0), 72):][:, :, :1368]
     assert torch.equal(got, warp_planes_batch_torch(cut, minv, 684, 1216))
     assert torch.equal(got, warp_planes_batch(cut, minv, 684, 1216))
+
+
+# ---- the warp kernel's 3-channel u8 HWC linear form -------------------------
+
+def hwc3_launches():
+    from vacv_tpu_torch.utils import trace
+
+    return trace.counter("warp.hwc3_launches")
+
+
+def warp_kernels_launched(fn, n=10):
+    """(the names of the warp kernels ``fn()`` launches, from the profiler
+    over ``n`` calls; the calls made): a window in which the profiler
+    recorded no warp kernel at all is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        calls += n
+        names = {e.key for e in prof.key_averages() if "warp_kernel" in e.key}
+        if names:
+            break
+    return names, calls
+
+
+@pytest.mark.parametrize("top", [0, 72, -5, 400])
+def test_warp_hwc3_form_at_config_5(cuda, top):
+    """BASELINE config 5 at one host's batch (16 frames of 2560x1440, the
+    crop an HWC view read at a device top, both clamps): the 3-channel form
+    on every path, bit for bit against the plain version, one count of
+    ``warp.hwc3_launches`` a call."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import PATHS, hwc3_form
+
+    planes = batch_on(cuda, n=16, h=1440, w=2560, seed=18)[:, :, 64:2496].permute(0, 3, 1, 2)
+    assert hwc3_form(planes)
+    minv = vt.invert_affine(M_ROT)
+    t = torch.tensor(top, dtype=torch.int32, device=cuda)
+    want = warp_planes_batch_torch(planes, minv, 684, 1216, row0=t, rows=1368)
+    before = hwc3_launches()
+    for path in PATHS:
+        got = warp_planes_batch(planes, minv, 684, 1216, row0=t, rows=1368, path=path)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), path
+    assert hwc3_launches() == before + len(PATHS)
+
+
+@pytest.mark.parametrize("w_out", [1216, 1213])
+@pytest.mark.parametrize("left", [64, 65])
+@pytest.mark.parametrize("base", [0, 1, 2, 3])
+def test_warp_hwc3_form_at_any_alignment(cuda, base, left, w_out):
+    """The 3-channel form from a source base 0 to 3 bytes past a 4-byte
+    boundary, at config 5's left and an odd one, into output rows of 1216
+    (4-byte stores) and 1213 bytes: bit for bit on every path."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import hwc3_form
+
+    n, h, w = 2, 1440, 2560
+    size = n * h * w * 3
+    g = torch.Generator(device=cuda)
+    g.manual_seed(base + left + w_out)
+    flat = torch.randint(0, 256, (size + 4,), generator=g, dtype=torch.uint8, device=cuda)
+    frames = flat[base:base + size].view(n, h, w, 3)
+    assert frames.data_ptr() % 4 == base
+    planes = frames[:, 36:1404, left:left + 2432].permute(0, 3, 1, 2)
+    assert hwc3_form(planes)
+    assert_warp_paths_exact(planes, vt.invert_affine(M_ROT), 684, w_out)
+
+
+@pytest.mark.parametrize("matrix", ["rotation", "rot30", "mostly_out"])
+@pytest.mark.parametrize("rule", ["constant", "reflect_101", "vacv"])
+def test_warp_hwc3_form_border_rules(cuda, matrix, rule):
+    """The edge tiles of the 3-channel form under BORDER_CONSTANT (border
+    value 17), BORDER_REFLECT_101 and the skip-edge mask, at 360x640 from
+    an odd left, and at config 5's geometry: bit for bit on every path."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import hwc3_form
+
+    kw = {"constant": dict(border=vt.BORDER_CONSTANT, border_value=17.0),
+          "reflect_101": dict(border=vt.BORDER_REFLECT_101),
+          "vacv": dict(edge_mode="vacv", border_value=9.0)}[rule]
+    planes = batch_on(cuda, n=2, h=360, w=641, seed=19)[:, :, 1:].permute(0, 3, 1, 2)
+    assert hwc3_form(planes)
+    assert_warp_paths_exact(planes, WARP_MATRICES[matrix], 215, 283, **kw)
+    if matrix == "rotation":
+        big = batch_on(cuda, n=2, h=1440, w=2560, seed=20)[:, 36:1404, 64:2496]
+        assert_warp_paths_exact(big.permute(0, 3, 1, 2), vt.invert_affine(M_ROT), 684, 1216, **kw)
+
+
+def test_warp_hwc3_launches_count_config_5_batches_only(cuda):
+    """``warp.hwc3_launches`` rises by one a config-5 batch, launch-record
+    hits included, and not at all for planar, f32, cubic, nearest or
+    4-channel calls; the kernel the profiler sees is the one
+    ``hwc3_form`` names."""
+    from vacv_tpu_torch.ops.cuda.warp_affine import hwc3_form
+    from vacv_tpu_torch.utils import trace
+
+    pre = Preprocessor(PreprocessConfig(crop_rect=VRect(64, 36, 2496, 1404),
+                                        warp=(tuple(map(tuple, M_ROT)), (1216, 684)),
+                                        out_size=(224, 224)), device="cuda")
+    batch = batch_on(cuda, n=16, h=1440, w=2560, seed=21)
+    top = torch.tensor(20, dtype=torch.int32, device=cuda)
+    before, hits = hwc3_launches(), trace.counter("pipeline.record_hits")
+    for _ in range(3):
+        pre.batch(batch, top=top)
+    torch.cuda.synchronize()
+    assert hwc3_launches() == before + 3
+    assert trace.counter("pipeline.record_hits") >= hits + 2
+    minv = vt.invert_affine(M_ROT)
+    hwc = batch[:2, 36:1404, 64:2496].permute(0, 3, 1, 2)
+    four = batch_on(cuda, n=2, h=360, w=640, seed=22)
+    four = torch.cat([four, four[..., :1]], -1).permute(0, 3, 1, 2)
+    calls = {
+        "hwc": (hwc, {}),
+        "planar": (hwc.contiguous(), {}),
+        "f32": (hwc.float(), {}),
+        "cubic": (hwc, dict(interp=vt.INTER_CUBIC)),
+        "nearest": (hwc, dict(interp=vt.INTER_NEAREST)),
+        "4 channels": (four, {}),
+    }
+    for name, (src, kw) in calls.items():
+        form = hwc3_form(src, kw.get("interp", vt.INTER_LINEAR))
+        assert form == (name == "hwc"), name
+        before = hwc3_launches()
+        names, calls = warp_kernels_launched(lambda: warp_planes_batch(src, minv, 300, 400, **kw))
+        assert hwc3_launches() == before + calls * int(form), name
+        assert names and all(("warp_kernel_hwc3" in k) == form for k in names), (name, names)
 
 
 # ---- the correlation kernel -----------------------------------------------

@@ -24,7 +24,7 @@ import torch
 
 from vacv_tpu_torch import config
 from vacv_tpu_torch.core import device_tables
-from vacv_tpu_torch.core.types import ColorCode, VRect
+from vacv_tpu_torch.core.types import ColorCode, InterMode, VRect
 from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
 from vacv_tpu_torch.models import pipeline
 from vacv_tpu_torch.ops.cuda import build, warp_affine
@@ -306,6 +306,31 @@ def test_a_warp_record_into_a_given_output_packs_its_arguments_as_before(lib):
     rec = warp_affine.prepare_warp_planes(planes, minv, 30, 40, row0=top, rows=40, out=out)
     assert rec.run(planes, top, out) is out
     assert only_calls(lib) == [parent_warp_args(planes, minv, 30, 40, out, 0x5EED, top, 40)]
+
+
+@pytest.mark.parametrize("top", [None, 9, torch.tensor(4, dtype=torch.int32)])
+def test_warp_records_count_the_3_channel_form(lib, top):
+    """``warp.hwc3_launches``: one a run of a record whose call takes the
+    kernel's 3-channel HWC form (config 5's route: a record made, then
+    hits), none for calls that do not (planar, f32, cubic)."""
+    pre = Preprocessor(CFG5, device="cpu")
+    batch = frames(2)
+    before = trace.counter("warp.hwc3_launches")
+    made, hits = trace.counter("pipeline.records_made"), trace.counter("pipeline.record_hits")
+    for _ in range(3):
+        pre._record(batch, top).run(batch, top)
+    assert trace.counter("pipeline.records_made") == made + 1
+    assert trace.counter("pipeline.record_hits") == hits + 2
+    assert len(lib.calls) == 3 * 2  # the warp and the planar tail, a batch
+    assert trace.counter("warp.hwc3_launches") == before + 3
+    hwc = batch.permute(0, 3, 1, 2)
+    minv = np.array([[1.1, 0.02, -3.0], [0.01, 0.9, 2.0]], np.float32)
+    for planes, kw in ((hwc.contiguous(), {}), (hwc.float(), {}),
+                       (hwc, dict(interp=InterMode.INTER_CUBIC))):
+        rec = warp_affine.prepare_warp_planes(planes, minv, 30, 40, **kw)
+        assert not rec.hwc3
+        rec.run(planes)
+    assert trace.counter("warp.hwc3_launches") == before + 3
 
 
 # --- the records in the Preprocessor -----------------------------------------

@@ -294,6 +294,56 @@ def test_wrapper_constants_are_the_kernels():
     assert wk.PATHS == ("auto", "no_stage", "edge_only")
 
 
+def _hwc(n=2, h=40, w=56, c=3, dtype=torch.uint8):
+    return torch.zeros((n, h, w, c), dtype=dtype).permute(0, 3, 1, 2)
+
+
+def _meta(shape, strides):
+    """Planes of the given shape and strides with no memory behind them."""
+    return torch.empty_strided(shape, strides, dtype=torch.uint8, device="meta")
+
+
+_FLAT = torch.zeros(2 * 40 * 56 * 3 + 3, dtype=torch.uint8)
+# The C entry's 32-bit bound: (h - 1) sy + (w - 1) 3 + 2 < 2^31 - 1.
+_ROWS_AT_BOUND = (2**31 - 2 - 2 - 3 * 99) // 300 + 1      # the last rows count under it
+HWC3_CASES = {
+    "config 5 crop view": (torch.zeros((2, 1440, 2560, 3), dtype=torch.uint8)
+                           [:, 36:1404, 64:2496].permute(0, 3, 1, 2), vt.INTER_LINEAR, True),
+    "whole frames": (_hwc(), vt.INTER_LINEAR, True),
+    "odd left": (_hwc()[..., 1:], vt.INTER_LINEAR, True),
+    "base 1 byte past a boundary": (_FLAT[1:1 + 2 * 40 * 56 * 3].view(2, 40, 56, 3)
+                                    .permute(0, 3, 1, 2), vt.INTER_LINEAR, True),
+    "one pixel": (_hwc(1, 1, 1), vt.INTER_LINEAR, True),
+    "rows at the 32-bit bound": (_meta((1, 3, _ROWS_AT_BOUND, 100), (1, 1, 300, 3)),
+                                 vt.INTER_LINEAR, True),
+    "a row past the 32-bit bound": (_meta((1, 3, _ROWS_AT_BOUND + 1, 100), (1, 1, 300, 3)),
+                                    vt.INTER_LINEAR, False),
+    "planar": (_hwc().contiguous(), vt.INTER_LINEAR, False),
+    "f32": (_hwc(dtype=torch.float32), vt.INTER_LINEAR, False),
+    "f16": (_hwc(dtype=torch.float16), vt.INTER_LINEAR, False),
+    "cubic": (_hwc(), vt.INTER_CUBIC, False),
+    "nearest": (_hwc(), vt.INTER_NEAREST, False),
+    "4 channels": (_hwc(c=4), vt.INTER_LINEAR, False),
+    "1 channel": (_hwc(c=1), vt.INTER_LINEAR, False),
+    "5 channels": (_hwc(c=5), vt.INTER_LINEAR, False),
+    "3 of 4 channels": (_hwc(c=4)[:, :3], vt.INTER_LINEAR, False),
+    "x stride 6": (_hwc()[..., ::2], vt.INTER_LINEAR, False),
+}
+
+
+@pytest.mark.parametrize("case", list(HWC3_CASES))
+def test_hwc3_form_is_the_c_entrys_choice(case):
+    """``hwc3_form``: u8, linear, three channels read through an HWC view
+    (channel stride 1, x stride 3), every offset of a frame under 2^31 - 1,
+    as ``vacv_warp_affine`` decides it (the C entry's expressions, read
+    from its source)."""
+    planes, interp, want = HWC3_CASES[case]
+    assert wk.hwc3_form(planes, interp) is want
+    src = (wk.build.SRC_DIR / "warp_affine.cu").read_text()
+    assert "is_u8 && interp == kLinear && c == 3 && sc == 1 && sx == 3 && p.idx32" in src
+    assert "((row0_ptr != nullptr ? rows_full : h) - 1) * sy + (w - 1) * sx + (c - 1) * sc <" in src
+
+
 def tap_indices(minv, interp, h_out, w_out):
     """The tap index ranges ``warp_planes_torch`` reads for every output
     pixel, before any border rule, from its own coordinate grid: (x_min,

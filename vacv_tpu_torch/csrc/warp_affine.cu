@@ -1,7 +1,8 @@
 // Inverse-mapped affine warp of strided planes, for Hopper (sm_90a), with a
 // plain C interface loaded by ctypes (vacv_tpu_torch/ops/cuda/warp_affine.py).
 // The kernel and its notes are in warp_affine.cuh; this source holds the
-// interface and the u8 kernels, warp_affine_f32.cu the f32 kernels.
+// interface and the u8 kernels, warp_affine_f32.cu the f32 kernels and
+// warp_affine_hwc3.cu the 3-channel u8 HWC linear form.
 
 #include "warp_affine.cuh"
 
@@ -67,9 +68,13 @@ int vacv_warp_affine(int device, void* stream, const void* src, int is_u8, int n
             2147483647LL;
   p.fast_ok = h < kFastLimit && w < kFastLimit;
   p.mode = mode;
+  p.out4 = ox == 1 && (oy | oc | on) % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 3u) == 0;
   const dim3 grid((w_out + kTileX - 1) / kTileX, (h_out + kTileY - 1) / kTileY, n * p.groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_u8) {
+  // ops/cuda/warp_affine.py::hwc3_form is this choice on the host.
+  if (is_u8 && interp == kLinear && c == 3 && sc == 1 && sx == 3 && p.idx32) {
+    launch_hwc3(p, grid, s);
+  } else if (is_u8) {
     launch<uint8_t>(p, interp, grid, s);
   } else {
     launch_f32(p, interp, grid, s);

@@ -38,10 +38,13 @@
 // it.
 //
 // Bound: bytes on paper (one source byte read and one written per u8
-// output, 3.3 us for BASELINE config 5), but what limits it is the
-// instruction count per output: about 150 for a 3-channel bilinear pixel,
-// every rounding step of the plain version its own instruction.  The design
-// spends as few as it can on anything but that arithmetic:
+// output, 3.3 us for BASELINE config 5 with 2 frames), but what limits it
+// is the instruction count per output and the latency of the taps' loads:
+// in SASS a 3-channel bilinear pixel of an interior tile takes ~158
+// instructions in warp_kernel and ~122 in warp_kernel_hwc3 (below), of
+// which ~67 are the plain version's f32 rounding steps, 12 the byte loads
+// and 24 their conversions.  The design spends as few as it can on
+// anything but that arithmetic:
 //
 // * A block takes a 64 x 16 output tile, a thread 2 x 2 of its pixels (32
 //   columns and 8 rows apart) and up to kGroup channels.  The 32 lanes of
@@ -54,8 +57,9 @@
 //   tile's four corners bound all its coordinates.  A tile whose taps all
 //   lie inside the image (the corners' floors, grown by the tap support and
 //   one more) is "interior": no border rule, no mask, no skip-edge test.
-//   Only the other tiles run the per-tap rule.  One thread works all this
-//   out for its block (plan_tile) and shares it through shared memory.
+//   Only the other tiles run the per-tap rule.  In warp_kernel one thread
+//   works all this out for its block (plan_tile) and shares it through
+//   shared memory.
 // * The cubic kernel (16 taps a pixel) first copies an interior tile's
 //   source box into shared memory when its rows are dense (an HWC view
 //   with channel stride 1: one staged row holds all channels; or planes
@@ -74,6 +78,33 @@
 //   subtracting 2^23; floor(x) for |x| < 2^22 is (x + 1.5 2^23) rounded
 //   down, whose mantissa is also the integer index; the u8 epilogue clamps
 //   first and rounds down into 2^23's mantissa.  All exact.
+// * A u8 linear call on three channels read through an HWC view (channel
+//   stride 1, x stride 3) with every offset within 32 bits, BASELINE config
+//   5's warp, launches warp_kernel_hwc3 (warp_affine_hwc3.cu; on the host
+//   ops/cuda/warp_affine.py::hwc3_form): the same tiles, tile rule, edge
+//   path and arithmetic, with less around the arithmetic.  A tap row is one
+//   32-bit offset from the frame's base at its clamped top, made from the
+//   floors' float bits with their 0x4B400000 folded into a per-thread bias,
+//   so its six bytes are loads at immediate offsets (+0 .. +5) and the next
+//   row's are + sy: ~6 address instructions a pixel where warp_kernel's
+//   strided taps (a run-time channel stride, 64-bit addresses) take ~37.
+//   Each warp classifies its tile itself (lane i takes corner i & 3 and the
+//   warp votes), so no thread waits at a barrier for plan_tile.  A tile
+//   whole inside the output tests no slot and, where the output's rows and
+//   planes are 4-byte aligned (out4), stores each quad unconditionally; each
+//   slot's bytes are packed as they are made, so 3 words stay live, not 12
+//   floats.  Launch bounds: 4 blocks an SM, 64 registers, no spills (32
+//   warps an SM).  Measured on an H100 (700 W) at config 5, device top, the
+//   launch alone: 16 frames 100.2 -> 80.4 us, 2 frames 14.5 -> 13.3 us.
+//   Tried and left out (16 frames, each timed beside this form): 79
+//   registers (3 blocks an SM) 89.8 us; 40-48 registers with spills
+//   77.5-80.4; the slots unrolled 1 or 2 at a time 103-118; each tap row
+//   as two aligned words and a byte (6 loads a pixel, not 12) 85.1; an
+//   integer Q11 sum with a float fallback near a rounding boundary (~30
+//   fewer instructions, bit-exact) 81.8; persistent blocks 100.8.  So
+//   fewer instructions alone stop paying near 80 us at 16 frames, where
+//   the source (177 MB) comes from DRAM; with the source in L2 (2 frames)
+//   they still do.
 
 #pragma once
 
@@ -120,6 +151,7 @@ struct Params {
   int idx32;    // every source offset fits 32 bits
   int fast_ok;  // h, w < 2^22
   int mode;     // kAuto / kNoStage / kEdgeOnly
+  int out4;     // u8 output of x stride 1, its base, rows, planes and frames 4-byte aligned
 };
 
 __device__ __forceinline__ int to_index(float f) {
@@ -201,12 +233,16 @@ struct Edge {
   }
 };
 
+// floor(f) + 1.5 2^23, exactly, for |f| < 2^22: rounded down by the adder,
+// its bits are 0x4B400000 plus the integer floor(f).
+__device__ __forceinline__ float floor_magic(float f) { return __fadd_rd(f, kFloorMagic); }
+
 // floor(f) and its integer index.  FAST (|f| < 2^22, an interior tile):
 // through the adder, exactly; else floorf and the plain version's clamp.
 template <bool FAST>
 __device__ __forceinline__ void floor_index(float f, float& fl, int& idx) {
   if constexpr (FAST) {
-    const float t = __fadd_rd(f, kFloorMagic);
+    const float t = floor_magic(f);
     idx = __float_as_int(t) - 0x4B400000;
     fl = __fsub_rn(t, kFloorMagic);
   } else {
@@ -221,6 +257,38 @@ __device__ __forceinline__ float q11(float w) {
   const float t = __fadd_rn(__fmul_rn(w, 2048.f), 0.5f);
   const float fl = FAST ? __fsub_rn(__fadd_rd(t, kTwo23), kTwo23) : floorf(t);
   return __fmul_rn(fl, 1.f / 2048.f);
+}
+
+// The bilinear weights w00, w10, w01, w11 (tap (x + i, y + j) is wij) from
+// the fractions: Q11 for u8, plain for f32.
+template <typename T, bool FAST>
+__device__ __forceinline__ void linear_weights(float ax, float ay, float w[4]) {
+  float wx0, wx1, wy0, wy1;
+  if constexpr (sizeof(T) == 1) {
+    wx0 = q11<FAST>(__fsub_rn(1.f, ax));
+    wx1 = __fsub_rn(1.f, wx0);
+    wy0 = q11<FAST>(__fsub_rn(1.f, ay));
+    wy1 = __fsub_rn(1.f, wy0);
+  } else {
+    wx0 = __fsub_rn(1.f, ax);
+    wx1 = ax;
+    wy0 = __fsub_rn(1.f, ay);
+    wy1 = ay;
+  }
+  w[0] = __fmul_rn(wx0, wy0);
+  w[1] = __fmul_rn(wx0, wy1);
+  w[2] = __fmul_rn(wx1, wy0);
+  w[3] = __fmul_rn(wx1, wy1);
+}
+
+// p00 w00 + p10 w10 + p01 w01 + p11 w11 in the plain version's order, tap j
+// (00, 10, 01, 11) read by tap(j) as the sum needs it.
+template <typename L>
+__device__ __forceinline__ float blend4(const L& tap, const float w[4]) {
+  float v = __fmul_rn(tap(0), w[0]);
+  v = __fadd_rn(v, __fmul_rn(tap(1), w[1]));
+  v = __fadd_rn(v, __fmul_rn(tap(2), w[2]));
+  return __fadd_rn(v, __fmul_rn(tap(3), w[3]));
 }
 
 // A = -0.75 cubic weights in the plain version's order (_cubic_coefs).
@@ -286,30 +354,17 @@ __device__ __forceinline__ void pixel(const F& f, float fx, float fy, int cn, bo
         }
       }
     } else {
-      float wx0, wx1, wy0, wy1;
-      if constexpr (sizeof(T) == 1) {
-        wx0 = q11<FAST>(__fsub_rn(1.f, ax));
-        wx1 = __fsub_rn(1.f, wx0);
-        wy0 = q11<FAST>(__fsub_rn(1.f, ay));
-        wy1 = __fsub_rn(1.f, wy0);
-      } else {
-        wx0 = __fsub_rn(1.f, ax);
-        wx1 = ax;
-        wy0 = __fsub_rn(1.f, ay);
-        wy1 = ay;
-      }
-      const float w00 = __fmul_rn(wx0, wy0), w10 = __fmul_rn(wx0, wy1);
-      const float w01 = __fmul_rn(wx1, wy0), w11 = __fmul_rn(wx1, wy1);
+      float wt[4];
+      linear_weights<T, FAST>(ax, ay, wt);
       const typename F::Tap t00 = f.tap(sx, sy), t10 = f.tap(sx, sy + 1);
       const typename F::Tap t01 = f.tap(sx + 1, sy), t11 = f.tap(sx + 1, sy + 1);
       const bool masked = !FAST && vacv && !(sx >= 0 && sx < w - 1 && sy >= 0 && sy < h - 1);
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) {
         if (k >= cn) continue;
-        float v = __fmul_rn(f.load(t00, k), w00);
-        v = __fadd_rn(v, __fmul_rn(f.load(t10, k), w10));
-        v = __fadd_rn(v, __fmul_rn(f.load(t01, k), w01));
-        v = __fadd_rn(v, __fmul_rn(f.load(t11, k), w11));
+        const float v = blend4([&](int j) {
+          return f.load(j == 0 ? t00 : j == 1 ? t10 : j == 2 ? t01 : t11, k);
+        }, wt);
         acc[k] = masked ? bv : v;
       }
     }
@@ -328,41 +383,90 @@ __device__ __forceinline__ uint32_t to_byte(float v) {
   return __float_as_uint(__fadd_rd(u, kTwo23));
 }
 
-// A thread's four pixels (slot s = 2 j + i at (dx + 32 i, dy + 8 j)), up to
-// cn channels: computed through F and stored.  A warp's 32 lanes are 32
-// neighbouring pixels of a row, so a tap load touches neighbouring source
-// bytes (no bank conflicts in a staged box) and an f32 store is dense.  A
-// u8 plane is packed first: lanes 4q .. 4q+3 hold four neighbouring pixels
-// in each slot, a 4 x 4 byte transpose by two shuffles hands lane 4q + s
-// the four bytes of slot s, and it stores them as one 32-bit word where
-// the output is dense in x and aligned.  Every lane of the warp must call
-// this (the shuffles), whether or not its pixels lie inside the output.
-// CN > 0 is the channel count at compile time (0: `cn` at run time).
+// The u8 pack: lanes 4q .. 4q+3 hold four neighbouring pixels, each with
+// its byte of slot s in byte s of `own`; a 4 x 4 byte transpose by two
+// shuffles hands lane 4q + s the four bytes of slot s (byte e from lane
+// 4q + e).  Every lane of the warp must call it.
+__device__ __forceinline__ uint32_t exchange_quad(uint32_t own) {
+  const int lane = threadIdx.x;
+  uint32_t o = __shfl_xor_sync(0xffffffffu, own, 1);
+  own = __byte_perm(own, o, (lane & 1) ? 0x3715 : 0x6240);
+  o = __shfl_xor_sync(0xffffffffu, own, 2);
+  return __byte_perm(own, o, (lane & 2) ? 0x3276 : 0x5410);
+}
+
+// The same from b[s], slot s's byte in its low bits.
+__device__ __forceinline__ uint32_t transpose_quad(const uint32_t b[kSlots]) {
+  // Own bytes, slot s in byte s.
+  return exchange_quad(__byte_perm(__byte_perm(b[0], b[1], 0x0040),
+                                   __byte_perm(b[2], b[3], 0x0040), 0x5410));
+}
+
+// Four neighbouring u8 outputs of channel k from (qx, qy): one 32-bit store
+// where the output is dense in x and aligned, else byte by byte inside it.
+__device__ __forceinline__ void store_quad(const Params& p, uint8_t* out, int qx, int qy, int k,
+                                           uint32_t w) {
+  if (qy >= p.h_out || qx >= p.w_out) return;
+  uint8_t* a = out + qy * p.oy + qx * p.ox + k * p.oc;
+  if (qx + 3 < p.w_out && p.ox == 1 && (reinterpret_cast<uintptr_t>(a) & 3u) == 0) {
+    *reinterpret_cast<uint32_t*>(a) = w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (qx + e < p.w_out) a[e * p.ox] = static_cast<uint8_t>((w >> (8 * e)) & 0xffu);
+  }
+}
+
+// The source coordinates of a thread's four pixels (slot s = 2 j + i at
+// (dx + 32 i, dy + 8 j)), each from its own (dx, dy) in the plain version's
+// order ((m0 dx) + (m1 dy)) + m2, the products shared by the slots.
+struct SlotCoords {
+  float fx_x[2], fy_x[2], fx_y[2], fy_y[2];
+  __device__ __forceinline__ SlotCoords(const Params& p, int dx, int dy) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float fdx = static_cast<float>(dx + kBlockX * i);
+      const float fdy = static_cast<float>(dy + kBlockY * i);
+      fx_x[i] = __fmul_rn(p.m[0], fdx);
+      fy_x[i] = __fmul_rn(p.m[3], fdx);
+      fx_y[i] = __fmul_rn(p.m[1], fdy);
+      fy_y[i] = __fmul_rn(p.m[4], fdy);
+    }
+  }
+  __device__ __forceinline__ void at(const Params& p, int s, float& fx, float& fy) const {
+    fx = __fadd_rn(__fadd_rn(fx_x[s & 1], fx_y[s >> 1]), p.m[2]);
+    fy = __fadd_rn(__fadd_rn(fy_x[s & 1], fy_y[s >> 1]), p.m[5]);
+  }
+};
+
+__device__ __forceinline__ bool slot_inside(const Params& p, int dx, int dy, int s) {
+  return dx + kBlockX * (s & 1) < p.w_out && dy + kBlockY * (s >> 1) < p.h_out;
+}
+
+// A thread's four pixels, up to cn channels: computed through F and
+// stored.  A warp's 32 lanes are 32 neighbouring pixels of a row, so a tap
+// load touches neighbouring source bytes (no bank conflicts in a staged
+// box) and an f32 store is dense; a u8 plane is packed by transpose_quad.
+// Every lane of the warp must call this (the shuffles), whether or not its
+// pixels lie inside the output.  CN > 0 is the channel count at compile
+// time (0: `cn` at run time).
 template <typename T, int INTERP, bool FAST, int CN, typename F>
 __device__ __forceinline__ void run_cn(const F& f, const Params& p, T* out, int dx, int dy,
                                        int cn) {
   if constexpr (CN > 0) cn = CN;
-  float fx_x[2], fy_x[2], fx_y[2], fy_y[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float fdx = static_cast<float>(dx + kBlockX * i), fdy = static_cast<float>(dy + kBlockY * i);
-    fx_x[i] = __fmul_rn(p.m[0], fdx);
-    fy_x[i] = __fmul_rn(p.m[3], fdx);
-    fx_y[i] = __fmul_rn(p.m[1], fdy);
-    fy_y[i] = __fmul_rn(p.m[4], fdy);
-  }
+  const SlotCoords xy(p, dx, dy);
   float res[kSlots][kGroup];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) res[s][k] = 0.f;
-    if (dx + kBlockX * (s & 1) >= p.w_out || dy + kBlockY * (s >> 1) >= p.h_out) continue;
-    const float fx = __fadd_rn(__fadd_rn(fx_x[s & 1], fx_y[s >> 1]), p.m[2]);
-    const float fy = __fadd_rn(__fadd_rn(fy_x[s & 1], fy_y[s >> 1]), p.m[5]);
+    if (!slot_inside(p, dx, dy, s)) continue;
+    float fx, fy;
+    xy.at(p, s, fx, fy);
     pixel<T, INTERP, FAST, CN>(f, fx, fy, cn, p.vacv != 0, p.h, p.w, p.bv, res[s]);
   }
   if constexpr (sizeof(T) == 1) {
-    const int lane = threadIdx.x, c = lane & 3;
+    const int c = threadIdx.x & 3;
     // After the transpose this lane holds slot c of the quad at dx - c.
     const int qx = dx - c + kBlockX * (c & 1), qy = dy + kBlockY * (c >> 1);
 #pragma unroll
@@ -371,22 +475,7 @@ __device__ __forceinline__ void run_cn(const F& f, const Params& p, T* out, int 
       uint32_t b[kSlots];
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) b[s] = to_byte<INTERP, FAST>(res[s][k]);
-      // Own bytes, slot s in byte s.
-      uint32_t w = __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040),
-                               0x5410);
-      uint32_t o = __shfl_xor_sync(0xffffffffu, w, 1);
-      w = __byte_perm(w, o, (lane & 1) ? 0x3715 : 0x6240);
-      o = __shfl_xor_sync(0xffffffffu, w, 2);
-      w = __byte_perm(w, o, (lane & 2) ? 0x3276 : 0x5410);
-      if (qy >= p.h_out || qx >= p.w_out) continue;
-      T* a = out + qy * p.oy + qx * p.ox + k * p.oc;
-      if (qx + 3 < p.w_out && p.ox == 1 && (reinterpret_cast<uintptr_t>(a) & 3u) == 0) {
-        *reinterpret_cast<uint32_t*>(a) = w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (qx + e < p.w_out) a[e * p.ox] = static_cast<T>((w >> (8 * e)) & 0xffu);
-      }
+      store_quad(p, out, qx, qy, k, transpose_quad(b));
     }
   } else {
 #pragma unroll
@@ -416,15 +505,27 @@ __device__ __forceinline__ void run(const F& f, const Params& p, T* out, int dx,
 // tap of the tile then lies in [lo, hi] and that lies in [0, n - 1].
 // ops/cuda/warp_affine.py::tile_box is the same rule on the host.
 template <int INTERP>
+struct Support {  // taps to the left of floor(f), and to the right, plus one
+  static constexpr int lo = INTERP == kCubic ? 2 : 1, hi = INTERP == kCubic ? 3 : 2;
+};
+
+// Does a corner's floor allow an interior tile?  False for a NaN or an
+// out-of-range corner.
+template <int INTERP>
+__device__ __forceinline__ bool corner_inside(float fl, int n) {
+  return fl >= static_cast<float>(Support<INTERP>::lo) &&
+         fl <= static_cast<float>(n - 1 - Support<INTERP>::hi);
+}
+
+template <int INTERP>
 __device__ __forceinline__ bool corner_range(const float c[4], int n, int& lo, int& hi) {
-  constexpr int g_lo = INTERP == kCubic ? 2 : 1, g_hi = INTERP == kCubic ? 3 : 2;
+  constexpr int g_lo = Support<INTERP>::lo, g_hi = Support<INTERP>::hi;
   float mn = 0.f, mx = 0.f;
   bool ok = true;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float fl = floorf(c[i]);
-    // False for a NaN or an out-of-range corner.
-    ok = ok && fl >= static_cast<float>(g_lo) && fl <= static_cast<float>(n - 1 - g_hi);
+    ok = ok && corner_inside<INTERP>(fl, n);
     mn = i == 0 ? fl : fminf(mn, fl);
     mx = i == 0 ? fl : fmaxf(mx, fl);
   }
@@ -432,6 +533,22 @@ __device__ __forceinline__ bool corner_range(const float c[4], int n, int& lo, i
   lo = static_cast<int>(mn) - g_lo;
   hi = static_cast<int>(mx) + g_hi;
   return true;
+}
+
+// The output tile at (x0, y0): its first and last columns (ex) and rows
+// (ey), cut at the output's edge; and the source coordinate of the corner
+// (ex[i], ey[j]).
+__device__ __forceinline__ void tile_edges(const Params& p, int x0, int y0, float ex[2],
+                                           float ey[2]) {
+  ex[0] = static_cast<float>(x0);
+  ex[1] = static_cast<float>(min(x0 + kTileX, p.w_out) - 1);
+  ey[0] = static_cast<float>(y0);
+  ey[1] = static_cast<float>(min(y0 + kTileY, p.h_out) - 1);
+}
+__device__ __forceinline__ void tile_corner(const Params& p, float fdx, float fdy, float& cx,
+                                            float& cy) {
+  cx = __fadd_rn(__fadd_rn(__fmul_rn(p.m[0], fdx), __fmul_rn(p.m[1], fdy)), p.m[2]);
+  cy = __fadd_rn(__fadd_rn(__fmul_rn(p.m[3], fdx), __fmul_rn(p.m[4], fdy)), p.m[5]);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -471,15 +588,10 @@ __device__ void plan_tile(const Params& p, Tile& t) {
   t.path = kEdgePath;
   if (p.mode == kEdgeOnly || !p.fast_ok) return;
   // The tile's source box, from the coordinates of its four corners.
-  const float ex[2] = {static_cast<float>(x0), static_cast<float>(min(x0 + kTileX, p.w_out) - 1)};
-  const float ey[2] = {static_cast<float>(y0), static_cast<float>(min(y0 + kTileY, p.h_out) - 1)};
-  float cx[4], cy[4];
+  float ex[2], ey[2], cx[4], cy[4];
+  tile_edges(p, x0, y0, ex, ey);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float fdx = ex[i & 1], fdy = ey[i >> 1];
-    cx[i] = __fadd_rn(__fadd_rn(__fmul_rn(p.m[0], fdx), __fmul_rn(p.m[1], fdy)), p.m[2]);
-    cy[i] = __fadd_rn(__fadd_rn(__fmul_rn(p.m[3], fdx), __fmul_rn(p.m[4], fdy)), p.m[5]);
-  }
+  for (int i = 0; i < 4; ++i) tile_corner(p, ex[i & 1], ey[i >> 1], cx[i], cy[i]);
   int x_lo, x_hi, y_lo, y_hi;
   if (!corner_range<INTERP>(cx, p.w, x_lo, x_hi) || !corner_range<INTERP>(cy, p.h, y_lo, y_hi))
     return;
@@ -575,5 +687,8 @@ void launch(const Params& p, int interp, dim3 grid, cudaStream_t s) {
 
 // The f32 kernels' launch, compiled in warp_affine_f32.cu.
 void launch_f32(const Params& p, int interp, dim3 grid, cudaStream_t s);
+
+// The 3-channel u8 HWC linear form's launch, compiled in warp_affine_hwc3.cu.
+void launch_hwc3(const Params& p, dim3 grid, cudaStream_t s);
 
 }  // namespace vacv_warp

@@ -36,6 +36,12 @@ the source: from a copy of the tile's source box in shared memory
 expressions, so that a CPU test can hold the box (a staged box that misses
 a tap would be an out-of-bounds shared read) and a caller can see which
 path a call takes.
+
+A u8 linear call on three channels read through an HWC view (channel
+stride 1, x stride 3) whose offsets fit 32 bits launches the kernel's
+3-channel form instead (``hwc3_form`` is that choice on the host; counter
+``warp.hwc3_launches``): the same tiles, paths and arithmetic, with the
+taps at immediate offsets and no barrier.
 """
 from __future__ import annotations
 
@@ -153,6 +159,20 @@ def tile_paths(planes, minv, h_out: int, w_out: int, interp=InterMode.INTER_LINE
     return counts
 
 
+def hwc3_form(planes, interp=InterMode.INTER_LINEAR) -> bool:
+    """Does a call on ``planes`` (as ``warp_planes_batch`` takes them: the
+    full rows when a ``row0`` is given) launch the kernel's 3-channel u8
+    HWC linear form (``warp_kernel_hwc3``)?  The C entry's choice, written
+    out: u8, ``INTER_LINEAR``, three channels read through an HWC view
+    (channel stride 1, x stride 3), and every source offset of a frame
+    within 32 bits.  Every other call takes ``warp_kernel``."""
+    n, c, h, w = planes.shape
+    sn, sc, sy, sx = planes.stride()
+    idx32 = (h - 1) * sy + (w - 1) * sx + (c - 1) * sc < 2**31 - 1
+    return (planes.dtype == torch.uint8 and InterMode(interp) == InterMode.INTER_LINEAR
+            and c == 3 and sc == 1 and sx == 3 and idx32)
+
+
 def _check(planes, interp, border, row0=None, rows=None):
     if planes.ndim != 4:
         raise ValueError(f"warp needs (N, C, h, w) planes, got {tuple(planes.shape)}")
@@ -198,17 +218,20 @@ class WarpLaunch:
     the output unless given one, puts in the source's address (``offset``
     bytes past ``planes.data_ptr()``), the output's and the device top's,
     makes the call into the kernel library, checks its return code and
-    counts the route.  A record runs only sources of the shape, strides,
-    type and device it was prepared for, into outputs of its strides, on the
-    CUDA stream that was current then, with a ``row0`` of the kind it was
-    prepared with (none, or a tensor of the same type and device; an int32
-    top on the card goes in by its address)."""
+    counts the route, and ``warp.hwc3_launches`` where the call takes the
+    kernel's 3-channel HWC form (``hwc3_form``).  A record runs only
+    sources of the shape, strides, type and device it was prepared for,
+    into outputs of its strides, on the CUDA stream that was current then,
+    with a ``row0`` of the kind it was prepared with (none, or a tensor of
+    the same type and device; an int32 top on the card goes in by its
+    address)."""
 
-    __slots__ = ("device", "shape", "dtype", "lib", "fn", "args", "top")
+    __slots__ = ("device", "shape", "dtype", "lib", "fn", "args", "top", "hwc3")
 
     def __init__(self, device, shape, dtype):
         self.device, self.shape, self.dtype = device, shape, dtype
         self.lib = self.fn = self.args = self.top = None
+        self.hwc3 = False
 
     def run(self, planes, row0=None, out=None, offset=0):
         """Warp into ``out`` (a new tensor when None) and return it.  Traced
@@ -234,6 +257,8 @@ class WarpLaunch:
             trace.count("native.calls")
             build.check(self.lib, rc, "warp kernel")
             config.record_kernel("warp_affine")
+            if self.hwc3:
+                trace.count("warp.hwc3_launches")
             return out
         finally:
             if span is not None:
@@ -294,6 +319,7 @@ def prepare_warp_planes(planes, minv, h_out: int, w_out: int, *, row0=None, rows
     if row0 is not None:
         rec.top = "device" if row0.dtype == torch.int32 and row0.device == dev else "cast"
     m = np.asarray(minv, np.float32).reshape(6)
+    rec.hwc3 = hwc3_form(planes, interp)
     rec.lib, rec.fn = _entry_points()
     rec.args = (dev.index, stream_key(dev), None, int(planes.dtype == torch.uint8), n, c, h, w,
                 *planes.stride(), None, h_out, w_out, *strides, *(float(v) for v in m),
