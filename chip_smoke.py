@@ -1666,7 +1666,7 @@ def time_yuv2bgr_widths(card: str) -> None:
     from vacv_tpu_torch.ops.cuda import build
     from vacv_tpu_torch.ops.cuda import yuv2bgr as yk
 
-    lib, fn = yk._entry_points()
+    fn = build.entry("vacv_yuv2bgr")
     for h, w in ((144, 176), (288, 352), (480, 640), (TRACK_H, TRACK_W), (H, W), (2 * H, 2 * W)):
         buf = make_nv(1, h, w, seed=h)[0]
         y, vu = buf[:h], buf[h:]
@@ -1679,8 +1679,8 @@ def time_yuv2bgr_widths(card: str) -> None:
 
             def run(v=v, out=out):
                 stream = torch.cuda.current_stream().cuda_stream
-                build.check(lib, fn(0, stream, y.data_ptr(), w, vu.data_ptr(), w, out.data_ptr(),
-                                    h, w, 0, v), f"yuv2bgr at {v} bytes a thread")
+                build.call(fn, (0, stream, y.data_ptr(), w, vu.data_ptr(), w, out.data_ptr(), h, w,
+                                0, v), f"yuv2bgr at {v} bytes a thread")
                 return out
 
             require(torch.equal(run(), want), f"yuv2bgr {h}x{w} at {v} bytes: other bits")

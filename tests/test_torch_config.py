@@ -14,6 +14,7 @@ import pytest
 
 import vacv_tpu_torch as vt
 from vacv_tpu_torch import config
+from vacv_tpu_torch.utils import trace
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -22,7 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def reloaded(monkeypatch):
     """Reload ``config`` under a given VACV_BACKEND; put the module back as
     it was (backend, default device, counters) afterwards."""
-    state = (config._BACKEND, config._DEVICE, dict(config._KERNEL_COUNTS))
+    state = (config._BACKEND, config._DEVICE, trace.snapshot()["counters"])
 
     def go(value):
         if value is None:
@@ -35,7 +36,8 @@ def reloaded(monkeypatch):
     monkeypatch.delenv("VACV_BACKEND", raising=False)
     importlib.reload(config)
     config._BACKEND, config._DEVICE = state[0], state[1]
-    config._KERNEL_COUNTS.update(state[2])
+    for name, n in state[2].items():
+        trace.count(name, n - trace.counter(name))
 
 
 @pytest.mark.parametrize("value,want", [

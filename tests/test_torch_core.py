@@ -194,27 +194,31 @@ def test_import_loads_neither_jax_nor_triton():
 
 
 def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
-    """Every wrapper declares its C entry point's argument types exactly
-    (a miscounted argtypes list only shows on the card otherwise)."""
+    """The one entry table (``build.ENTRIES``) declares every C entry point
+    of the library once, with its result and argument types exactly (a
+    miscounted argtypes list only shows on the card otherwise), and no other
+    module of the port declares one."""
+    import ast
     import ctypes
     import re
     import types
 
-    from vacv_tpu_torch.ops.cuda import (
-        build, match_template, normalize, preprocess, probe, warp_affine, window_sum, yuv2bgr,
-    )
+    from vacv_tpu_torch.ops.cuda import build
 
     c_types = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong,
-               "void*": ctypes.c_void_p, "const void*": ctypes.c_void_p}
+               "void*": ctypes.c_void_p, "const void*": ctypes.c_void_p,
+               "const char*": ctypes.c_char_p}
     declared = {}
     for src in sorted(build.SRC_DIR.glob("*.cu")):
         text = src.read_text()
         if 'extern "C" {' not in text:
             continue  # kernels only (warp_affine_f32.cu): its interface is in another source
         block = text.split('extern "C" {', 1)[1]
-        for name, params in re.findall(r"^(?:int|const char\*) (vacv_\w+)\(([^)]*)\)", block, re.M):
+        for result, name, params in re.findall(r"^(int|const char\*) (vacv_\w+)\(([^)]*)\)",
+                                               block, re.M):
+            assert name not in declared, f"{name} defined twice"
             params = [" ".join(p.split()[:-1]) for p in params.split(",") if p.strip() != "void"]
-            declared[name] = [c_types[p] for p in params if p]
+            declared[name] = (c_types[result], [c_types[p] for p in params if p])
 
     class Fn:
         def __call__(self):
@@ -222,21 +226,25 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
 
     fake = types.SimpleNamespace(**{name: Fn() for name in declared})
     monkeypatch.setattr(build, "library", lambda: types.SimpleNamespace(lib=fake))
-    wrappers = (normalize._entry_points, preprocess._entry_points, yuv2bgr._entry_points,
-                warp_affine._entry_points, match_template._entry_points, probe._entry_points,
-                window_sum._entry_points)
-    for entry in wrappers:
-        entry.cache_clear()
+    build.entry.cache_clear()
     try:
-        for entry in wrappers:
-            entry()
+        for name in build.ENTRIES:
+            build.entry(name)
     finally:
-        for entry in wrappers:
-            entry.cache_clear()
-    bound = {name: fn.argtypes for name, fn in vars(fake).items() if hasattr(fn, "argtypes")}
-    assert set(bound) == set(declared) - {"vacv_cuda_error_string"}
-    for name, argtypes in bound.items():
-        assert argtypes == declared[name], name
+        build.entry.cache_clear()
+    assert set(build.ENTRIES) == set(declared)
+    for name, (result, argtypes) in declared.items():
+        fn = getattr(fake, name)
+        assert (fn.restype, list(fn.argtypes)) == (result, argtypes), name
+    # the table's literal names each entry once, and no other wrapper declares one
+    tree = ast.parse(Path(build.__file__).read_text())
+    (table,) = [n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "ENTRIES" for t in n.targets)]
+    keys = [k.value for k in table.keys]
+    assert sorted(keys) == sorted(set(keys)) == sorted(declared)
+    for path in Path(build.__file__).parent.glob("*.py"):
+        if path.name != "build.py":
+            assert not re.search(r"\.(argtypes|restype)\b", path.read_text()), path
 
 
 # ---- the default device: the card unless the caller asks for the CPU ----

@@ -82,7 +82,7 @@ def lib(monkeypatch):
     key = lambda device: stream["handle"]  # noqa: E731
     for module in (device_tables, pk, warp_affine, pipeline):
         monkeypatch.setattr(module, "stream_key", key)
-    caches = [pk._entry_points, warp_affine._entry_points, pk.card_limits, pk._device_taps]
+    caches = [build.entry, pk.card_limits, pk._device_taps]
     for c in caches:
         c.cache_clear()
     yield types.SimpleNamespace(calls=calls, stream=stream)

@@ -107,17 +107,17 @@ def test_kernel_checks_run_before_any_launch():
     rows) raises in the launch path before the card is touched."""
     b16 = torch.zeros((24, 8), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
-        probe._launch(torch.zeros((12, 24), dtype=torch.bfloat16), b16, 4, 8)
+        probe._launch(torch.zeros((12, 24), dtype=torch.bfloat16), b16, 4)
     b8 = torch.zeros((48, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="multiple of 32"):
-        probe._launch(torch.zeros((12, 48), dtype=torch.int8), b8, 4, 8)
+        probe._launch(torch.zeros((12, 48), dtype=torch.int8), b8, 4)
     cols = torch.zeros((32, 12), dtype=torch.int8).T  # rows not contiguous
     with pytest.raises(ValueError, match="contiguous rows"):
-        probe._launch(cols, torch.zeros((32, 8), dtype=torch.int8), 4, 8)
+        probe._launch(cols, torch.zeros((32, 8), dtype=torch.int8), 4)
     odd = torch.zeros(12 * 32 + 1, dtype=torch.int8)[1:].view(12, 32)  # misaligned start
     with pytest.raises(ValueError, match="16-byte"):
-        probe._launch(odd, torch.zeros((32, 8), dtype=torch.int8), 4, 8)
-    with pytest.raises(ValueError, match="no probe route"):
+        probe._launch(odd, torch.zeros((32, 8), dtype=torch.int8), 4)
+    with pytest.raises(ValueError, match="no probe_dot route"):
         probe_dot(torch.zeros((12, 32), dtype=torch.int8, device="meta"),
                   torch.zeros((32, 8), dtype=torch.int8, device="meta"), 4)
 

@@ -245,9 +245,7 @@ def fake_library(monkeypatch):
     import ctypes
     import re
 
-    from vacv_tpu_torch.ops.cuda import (
-        build, match_template, normalize, preprocess, probe, warp_affine, window_sum, yuv2bgr,
-    )
+    from vacv_tpu_torch.ops.cuda import build, normalize, preprocess
 
     declared = {}
     for src in sorted(build.SRC_DIR.glob("*.cu")):
@@ -275,12 +273,8 @@ def fake_library(monkeypatch):
     lib = types.SimpleNamespace(**{name: fake(name) for name in declared})
     monkeypatch.setattr(build, "library", lambda: types.SimpleNamespace(lib=lib))
     monkeypatch.setattr(build, "sm_count", lambda index: 132)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
-    caches = [m._entry_points for m in (normalize, preprocess, yuv2bgr, warp_affine,
-                                         match_template, probe, window_sum)]
-    caches += [preprocess.card_limits, normalize._limits]
+    caches = [build.entry, preprocess.card_limits, normalize._limits]
     for c in caches:
         c.cache_clear()
     yield called
@@ -292,7 +286,8 @@ def fake_library(monkeypatch):
 def test_every_launch_site_counts_its_call_into_the_library(fake_library, spans):
     """Each form of each wrapper's launch, on CPU tensors against the fake
     library: the declared argument count, one ``native.calls`` a call and,
-    with spans on, one ``native.call`` span a call inside the wrapper's."""
+    with spans on, one ``native.call`` span a call inside the wrapper's, and
+    one ``ops.<route>`` span a wrapper call."""
     from vacv_tpu_torch.ops.cuda import (
         match_template, normalize, preprocess, probe, warp_affine, window_sum, yuv2bgr,
     )
@@ -321,7 +316,7 @@ def test_every_launch_site_counts_its_call_into_the_library(fake_library, spans)
         match_template._launch(torch.zeros((3, 40, 50)), torch.zeros((3, 5, 6)))
         window_sum._launch(torch.zeros((3, 40, 50)), 5, 6, True, True)
         probe._launch(torch.zeros((40, 32), dtype=torch.bfloat16),
-                      torch.zeros((32, 16), dtype=torch.bfloat16), 8, 32)
+                      torch.zeros((32, 16), dtype=torch.bfloat16), 8)
         assert fake_library == [
             "vacv_preprocess_moments", "vacv_preprocess_resize", "vacv_preprocess_normalize",
             "vacv_preprocess_resize", "vacv_preprocess_nv_one_pass", "vacv_preprocess_nv_resize",
@@ -330,9 +325,53 @@ def test_every_launch_site_counts_its_call_into_the_library(fake_library, spans)
         assert trace.counter("native.calls") - calls == 13
         spans_seen = trace.snapshot()["spans"]
         assert spans_seen.get("native.call", {"count": 0})["count"] == (13 if spans else 0)
+        wrapper_calls = {"ops.x": 5, "ops.warp_affine": 1, "ops.normalize_fused": 1,
+                         "ops.yuv2bgr": 1, "ops.match_corr": 1, "ops.window_sum": 1,
+                         "ops.probe_dot": 1}
+        assert {k: v["count"] for k, v in spans_seen.items() if k.startswith("ops.")} == (
+            wrapper_calls if spans else {})
     finally:
         trace.disable()
         trace.reset()
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+# each public wrapper of ops/cuda: its route, and a call on tensors it takes, on another device
+WRAPPER_CALLS = {
+    "preprocess_fused_batch": ("preprocess_fused", lambda m: m.preprocess_fused_batch(
+        _meta(2, 40, 64, 3, dtype=torch.uint8), None, (16, 12))),
+    "preprocess_fused_nv_batch": ("preprocess_fused_nv", lambda m: m.preprocess_fused_nv_batch(
+        _meta(2, 60, 64, dtype=torch.uint8), None, (16, 12))),
+    "preprocess_fused_planes": ("preprocess_fused_planar", lambda m: m.preprocess_fused_planes(
+        _meta(2, 3, 30, 40, dtype=torch.uint8), (16, 12))),
+    "warp_planes_batch": ("warp_affine", lambda m: m.warp_planes_batch(
+        _meta(2, 3, 30, 40, dtype=torch.uint8), np.eye(2, 3), 20, 30)),
+    "normalize_fused": ("normalize_fused", lambda m: m.normalize_fused(
+        _meta(3, 20, 30, dtype=torch.uint8))),
+    "nv_to_bgr": ("yuv2bgr", lambda m: m.nv_to_bgr(
+        _meta(20, 30, dtype=torch.uint8), _meta(10, 30, dtype=torch.uint8), is_nv12=False)),
+    "corr_planes": ("match_corr", lambda m: m.corr_planes(_meta(3, 40, 50), _meta(3, 5, 6))),
+    "window_sums": ("window_sum", lambda m: m.window_sums(_meta(3, 40, 50), 5, 6)),
+    "probe_dot": ("probe_dot", lambda m: m.probe_dot(
+        _meta(40, 32, dtype=torch.bfloat16), _meta(32, 16, dtype=torch.bfloat16), 8)),
+}
+
+
+@pytest.mark.parametrize("wrapper", list(WRAPPER_CALLS))
+def test_a_wrapper_on_another_device_names_its_route_and_counts_nothing(tracer, wrapper):
+    """Neither the card nor the CPU: ValueError naming the route, no
+    counter moved and no span opened."""
+    from vacv_tpu_torch.ops import cuda
+
+    route, run = WRAPPER_CALLS[wrapper]
+    before = tracer.snapshot()["counters"]
+    with pytest.raises(ValueError, match=f"no {route} route for device meta"):
+        run(cuda)
+    assert tracer.snapshot()["counters"] == before
+    assert tracer.snapshot()["spans"] == {}
 
 
 def test_the_cost_script_splits_a_small_cpu_run(tmp_path):

@@ -123,7 +123,6 @@ def backend(name: str):
 # plain-PyTorch route records its own name, so tests and chip_smoke.py can
 # assert which one ran.  They live in the port's tracer
 # (``utils/trace.py``) beside its other counters.
-_KERNEL_COUNTS = trace._counts
 record_kernel = trace.count
 kernel_count = trace.counter
 reset_kernel_counts = trace.reset_counts

@@ -30,7 +30,8 @@ from ..utils import trace
 def stream_key(device: torch.device) -> int | None:
     """The raw handle (``cudaStream_t``) of ``device``'s current CUDA
     stream, what ``torch.cuda.current_stream(device).cuda_stream`` gives
-    without building a Stream object; None off the card."""
+    without building a Stream object; None off the card.  Every launch in
+    ``ops/cuda/`` passes the library its stream from here."""
     if device.type != "cuda":
         return None
     index = torch.cuda.current_device() if device.index is None else device.index

@@ -58,7 +58,7 @@
 // has the same bits either way.
 //
 // Measured on an H100 (PERF.md §6; chip_smoke.py times the strip heights,
-// vacv_tpu_torch/profile/window_sum_variants.py the variants): 56-row strips
+// profile/window_sum_variants.py at commit bc01e07 the variants): 56-row strips
 // make 260 blocks at two an SM, one wave; 32-48 rows make a second wave.
 // What holds it: instruction issue and latency at 8 warps an SM (two
 // blocks of 4: the 85 KB ring and ~200 registers a thread allow no more).

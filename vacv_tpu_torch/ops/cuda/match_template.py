@@ -18,28 +18,14 @@ of a tile and sums their partials in a second launch (``split_plan``).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ... import config
-from ...utils import trace
+from ...core.device_tables import stream_key
 from . import build
 
 TILE_H, TILE_W = 32, 128  # the kernel's output tile (csrc/match_template.cu)
 BLOCKS_PER_SM = 4         # blocks an SM should see before channels are split
-
-
-@functools.lru_cache(maxsize=1)
-def _entry_points():
-    lib = build.library().lib
-    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    fn = lib.vacv_match_corr
-    fn.restype = i
-    # device, stream, img, c, h, w, strides c/y/x, template, th, tw, out, splits
-    fn.argtypes = [i, p, p, i, i, i, ll, ll, ll, p, i, i, p, i]
-    return lib, fn
 
 
 def _check(img, k):
@@ -78,7 +64,9 @@ def split_plan(h_out: int, w_out: int, c: int, sms: int) -> int:
     return -(-c // per)  # no split left empty
 
 
+@build.traced("match_corr")
 def _launch(img, k):
+    _check(img, k)
     c, h, w = img.shape
     _, th, tw = k.shape
     dev = img.device
@@ -88,15 +76,9 @@ def _launch(img, k):
     # One buffer for the splits' partials; the kernel sums them into the
     # first slice, which is the response.
     out = torch.empty((splits, h_out, w_out), dtype=torch.float32, device=dev)
-    lib, fn = _entry_points()
-    args = (dev.index, torch.cuda.current_stream(dev).cuda_stream, img.data_ptr(), c, h, w,
-            *img.stride(), k.data_ptr(), th, tw, out.data_ptr(), splits)
-    span = trace.begin("native.call") if trace.ON else None
-    rc = fn(*args)
-    if span is not None:
-        trace.end(span)
-    trace.count("native.calls")
-    build.check(lib, rc, "correlation kernel")
+    args = (dev.index, stream_key(dev), img.data_ptr(), c, h, w, *img.stride(), k.data_ptr(),
+            th, tw, out.data_ptr(), splits)
+    build.call(build.entry("vacv_match_corr"), args, "correlation kernel")
     config.record_kernel("match_corr")
     return out[0]
 
@@ -108,17 +90,5 @@ def corr_planes(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     Raises ValueError for inputs the kernel does not take (not rank 3, not
     f32, a template larger than the image or with another channel
     count)."""
-    span = (trace.begin("ops.match_corr" if img.is_cuda
-                        else "ops.match_corr_torch") if trace.ON else None)
-    try:
-        _check(img, k)
-        if img.device.type == "cuda":
-            return _launch(img, k)
-        if img.device.type != "cpu":
-            raise ValueError(f"no correlation route for device {img.device}")
-        out = corr_planes_torch(img, k)
-        config.record_kernel("match_corr_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    return build.dispatch("match_corr", img, lambda: _launch(img, k),
+                          lambda: corr_planes_torch(img, k))

@@ -12,17 +12,16 @@ version ``ops/normalize.py::normalize_torch``, counted as
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
 import torch
 
 from ... import config
+from ...core.device_tables import stream_key
 from ...core.image import Image
 from ...core.types import Layout
 from ..normalize import normalize_torch
-from ...utils import trace
 from . import build
 
 @dataclass(frozen=True)
@@ -108,28 +107,12 @@ def launch_plan(planes: int, plane: int, itemsize: int, lim: Limits,
                 planes * plane * 4 > _STREAM_BYTES)
 
 
-@functools.lru_cache(maxsize=1)
-def _entry_points():
-    lib = build.library().lib
-    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    limits = lib.vacv_normalize_limits
-    limits.restype, limits.argtypes = i, [i, p]
-    fn = lib.vacv_normalize_planes
-    fn.restype = i
-    # device, stream, x, is_u8, out, planes, plane, cluster, grid, per_plane, slice, cap,
-    # rounds, stream (evict-first stores), part
-    fn.argtypes = [i, p, p, i, p, i, ll, i, i, i, i, i, i, i, p]
-    return lib, limits, fn
-
-
 @functools.lru_cache(maxsize=None)
 def _limits(device_index: int) -> Limits:
-    lib, limits, _ = _entry_points()
-    out = (ctypes.c_int * 7)()
-    build.check(lib, limits(device_index, ctypes.cast(out, ctypes.c_void_p)), "normalize limits")
-    return Limits(*out)
+    return Limits(*build.limits("vacv_normalize_limits", device_index, 7))
 
 
+@build.traced("normalize_fused")
 def _launch(planes, form):
     if planes.ndim != 3:
         raise ValueError(f"normalize kernel needs (P, h, w) planes, got {tuple(planes.shape)}")
@@ -142,21 +125,14 @@ def _launch(planes, form):
     out = torch.empty((p, h, w), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib, _, fn = _entry_points()
     plan = launch_plan(p, h * w, planes.element_size(), _limits(dev.index), form)
     part = None
     if plan.scratch:
         part = torch.empty(plan.scratch, dtype=torch.float64, device=dev)
-    args = (dev.index, torch.cuda.current_stream(dev).cuda_stream,
-            planes.data_ptr(), int(planes.dtype == torch.uint8), out.data_ptr(),
-            p, h * w, plan.cluster, plan.grid, plan.per_plane, plan.slice, plan.cap, plan.rounds,
-            int(plan.stream), None if part is None else part.data_ptr())
-    span = trace.begin("native.call") if trace.ON else None
-    rc = fn(*args)
-    if span is not None:
-        trace.end(span)
-    trace.count("native.calls")
-    build.check(lib, rc, f"normalize kernel ({plan.form} form)")
+    args = (dev.index, stream_key(dev), planes.data_ptr(), int(planes.dtype == torch.uint8),
+            out.data_ptr(), p, h * w, plan.cluster, plan.grid, plan.per_plane, plan.slice,
+            plan.cap, plan.rounds, int(plan.stream), None if part is None else part.data_ptr())
+    build.call(build.entry("vacv_normalize_planes"), args, f"normalize kernel ({plan.form} form)")
     config.record_kernel("normalize_fused")
     return out
 
@@ -168,18 +144,7 @@ def normalize_fused(planes: torch.Tensor, form: str = "auto") -> torch.Tensor:
     "cluster" / "grid" to hold one form to the other.  Raises ValueError
     for planes the kernel does not take (not rank 3, not u8 or f32, not
     contiguous, or too large for a requested cluster form)."""
-    span = (trace.begin("ops.normalize_fused" if planes.is_cuda
-                        else "ops.normalize_fused_torch") if trace.ON else None)
-    try:
-        if planes.device.type == "cuda":
-            return _launch(planes, form)
-        if planes.device.type != "cpu":
-            raise ValueError(f"no normalize route for device {planes.device}")
-        if form not in FORMS:
-            raise ValueError(f"normalize form must be one of {FORMS}, got {form!r}")
-        out = normalize_torch(Image(planes, Layout.CHW)).data
-        config.record_kernel("normalize_fused_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    if form not in FORMS:
+        raise ValueError(f"normalize form must be one of {FORMS}, got {form!r}")
+    return build.dispatch("normalize_fused", planes, lambda: _launch(planes, form),
+                          lambda: normalize_torch(Image(planes, Layout.CHW)).data)

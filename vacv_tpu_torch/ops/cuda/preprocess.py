@@ -54,14 +54,12 @@ the integer-moment statistics.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ... import config
 from ...core.device_tables import stream_cached, stream_key
 from ...core.types import InterMode
 from ..crop import dynamic_slice
@@ -70,7 +68,6 @@ from ..normalize import normalize_planes
 from ..resize import (
     _cubic_weights, _linear_weights, _nearest_weights, u8_epilogue, u8_eps,
 )
-from ...utils import trace
 from . import build
 
 # The interpolations the kernel takes, and its taps per output row/column.
@@ -428,67 +425,19 @@ def one_pass_stats(raw: torch.Tensor, mean=None, stddev=None):
     return mu, 1.0 / (sd + np.float32(1e-6))
 
 
-@functools.lru_cache(maxsize=1)
-def _entry_points():
-    lib = build.library().lib
-    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    geom = [
-        i, i, i, p,                  # left, ch, top, top_ptr
-        i, i,                        # oh, ow
-        p, p, i, p, p, i,            # ystart, ywt, ky, xstart, xwt, kx
-    ]
-    stats = [f, f, f, f, f, f]       # mean[3], std[3]
-    tail = geom + [i, f, i] + stats  # trunc_u8, eps, static_norm
-    resize = lib.vacv_preprocess_resize
-    resize.restype = i
-    resize.argtypes = [i, p, p, p, i, i, i, i] + tail  # device, stream, src, out, n, h, w, planar
-    moments = lib.vacv_preprocess_moments
-    moments.restype = i
-    # device, stream, src, out, planes, slots, n, h, w, planar, geometry, eps, blocks,
-    # have_mean, have_std, stats
-    moments.argtypes = [i, p, p, p, p, p, i, i, i, i] + geom + [f, i, i, i] + stats
-    nv_resize = lib.vacv_preprocess_nv_resize
-    nv_resize.restype = i
-    # device, stream, src, out, n, h, w, is_nv12, to_rgb
-    nv_resize.argtypes = [i, p, p, p, i, i, i, i, i] + tail
-    norm = lib.vacv_preprocess_normalize
-    norm.restype = i
-    norm.argtypes = [i, p, p, i, ctypes.c_longlong, i, i] + stats
-    one_pass = lib.vacv_preprocess_nv_one_pass
-    one_pass.restype = i
-    # device, stream, src, out, n, h, w, is_nv12, to_rgb, geometry, eps, blocks, rows, chan,
-    # have_mean, have_std, evict_first, slots, stats
-    one_pass.argtypes = [i, p, p, p, i, i, i, i, i] + geom + [f, i, i, i, i, i, i, p] + stats
-    limits = lib.vacv_preprocess_limits
-    limits.restype, limits.argtypes = i, [i, p]
-    return lib, resize, moments, nv_resize, norm, one_pass, limits
-
-
 @functools.lru_cache(maxsize=None)
 def card_limits(device_index: int) -> CardLimits:
     """The card's and the NV one-pass kernel's limits, for ``launch_plan``."""
-    lib, *_, limits = _entry_points()
-    out = (ctypes.c_int * 4)()
-    build.check(lib, limits(device_index, ctypes.cast(out, ctypes.c_void_p)), "card limits")
-    return CardLimits(*out)
+    return CardLimits(*build.limits("vacv_preprocess_limits", device_index, 4))
 
 
-class FusedLaunch:
+class FusedLaunch(build.Launch):
     """One call of the fused kernel, prepared (``_prepare``; the public
-    ``prepare_fused_*`` functions below): the library's entry point, its
-    arguments with every static field filled in, and the tap tables and
-    scratch that those arguments point at, held here so that they outlive
-    the caches they came from.
-
-    ``run(batch, top)`` is the per-call part: it allocates the output, puts
-    in the batch's and the output's addresses and the top, makes the call
-    into the kernel library, checks its return code and counts the route.
-    A record runs only batches of the shape, strides, type and device it was
-    prepared for, on the CUDA stream that was current then, with a top of
-    the kind it was prepared with: None, an int (clamped here each call) or
-    a tensor of the same type and device (an int32 top on the batch's device
-    goes in by its address).  ``models/pipeline.py`` keys its records by
-    exactly these.
+    ``prepare_fused_*`` functions below): a ``build.Launch`` that holds the
+    tap tables and the scratch its arguments point at and, in the
+    two-launch form, makes the normalize launch after the first.  Its tops:
+    None, an int (clamped each call) or a tensor.  ``models/pipeline.py``
+    keys its records by what a record runs.
 
     The scratch (the moments form's u8 planes and moments, the one-pass
     form's slots) is kept from call to call.  That is safe on the record's
@@ -498,60 +447,23 @@ class FusedLaunch:
     is the same block reuse the caching allocator gives two calls on one
     stream."""
 
-    __slots__ = ("name", "span", "device", "shape", "lib", "fn", "args", "what", "top_at",
-                 "top_mode", "top_hi", "norm", "norm_args", "held")
+    __slots__ = ("norm", "norm_args")
 
     def __init__(self, name, device, shape):
-        self.name, self.span, self.device, self.shape = name, "ops." + name, device, shape
-        self.lib = self.fn = self.args = self.what = self.norm = self.norm_args = None
-        self.top_at, self.top_mode, self.top_hi, self.held = 0, None, 0, ()
-
-    def _bind(self, fn, front, rest, what):
-        """The entry point, and its arguments: ``front`` (the source and the
-        output at 2 and 3) then ``rest``, which starts with the taps."""
-        self.fn, self.args, self.what = fn, front + rest, what
-        self.top_at = len(front) + 2  # the taps' top, then the top's address
+        super().__init__(name, device, shape, torch.float32)
+        self.norm = self.norm_args = None
 
     def run(self, batch, top=None):
         """Launch the call on ``batch`` with ``top``; returns the (N, 3, oh,
         ow) f32 output, a new tensor every call.  Traced as span
         ``ops.<name>``."""
-        span = trace.begin(self.span) if trace.ON else None
-        try:
-            out = torch.empty(self.shape, dtype=torch.float32, device=self.device)
-            if self.fn is None:  # no frames
-                return out
-            args = list(self.args)
-            args[2] = batch.data_ptr()
-            args[3] = out.data_ptr()
-            if self.top_mode == "int":
-                args[self.top_at] = min(max(int(top), 0), self.top_hi)
-            elif self.top_mode is not None:
-                # The kernel reads the top from the device and clamps it there,
-                # so a moving ROI never synchronises the host.
-                if self.top_mode == "cast":
-                    top = top.reshape(()).to(device=self.device, dtype=torch.int32)
-                args[self.top_at + 1] = top.data_ptr()
-            call = trace.begin("native.call") if trace.ON else None
-            rc = self.fn(*args)
-            if call is not None:
-                trace.end(call)
-            trace.count("native.calls")
-            build.check(self.lib, rc, self.what)
-            if self.norm is not None:
-                args = list(self.norm_args)
-                args[2] = out.data_ptr()
-                call = trace.begin("native.call") if trace.ON else None
-                rc = self.norm(*args)
-                if call is not None:
-                    trace.end(call)
-                trace.count("native.calls")
-                build.check(self.lib, rc, f"{self.name} normalize kernel")
-            config.record_kernel(self.name)
-            return out
-        finally:
-            if span is not None:
-                trace.end(span)
+        return self._run(batch.data_ptr(), top, None)
+
+    def _more(self, out):
+        if self.norm is not None:
+            args = list(self.norm_args)
+            args[2] = out.data_ptr()
+            build.call(self.norm, args, f"{self.route} normalize kernel")
 
 
 def _prepare(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp, name, plan,
@@ -571,12 +483,7 @@ def _prepare(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp, na
     rec = FusedLaunch(name, dev, (n, 3, oh, ow))
     if n == 0:
         return rec
-    if isinstance(top, torch.Tensor):
-        same = top.dtype == torch.int32 and top.device == dev
-        rec.top_mode = "device" if same else "cast"
-    elif top is not None:
-        rec.top_mode, rec.top_hi = "int", h - ch
-    else:
+    if top is None:
         top0 = _clamped_top(None, top0, h, ch, dev)
     ys, yw = _device_taps(ch, oh, interp, dev)
     xs, xw = _device_taps(cw, ow, interp, dev)
@@ -585,8 +492,7 @@ def _prepare(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp, na
     zeros = (0.0, 0.0, 0.0)
     stats = (*(mean_s or zeros), *(std_s or zeros))
     have = (int(mean_s is not None), int(std_s is not None))
-    lib, resize, moments, nv_resize, norm, one_pass, _ = _entry_points()
-    rec.lib, rec.held = lib, (ys, yw, xs, xw)
+    rec.held = (ys, yw, xs, xw)
     head = (dev.index, stream_key(dev), None, None)  # the source and the output: per call
     taps = (left, ch, top0, None, oh, ow, ys.data_ptr(), yw.data_ptr(), yw.shape[1],
             xs.data_ptr(), xw.data_ptr(), xw.shape[1])
@@ -595,26 +501,30 @@ def _prepare(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp, na
         # each block's moments, 6 x 8 bytes
         slots = torch.empty(n * plan.blocks * 6, dtype=torch.int64, device=dev)
         rec.held += (slots,)
-        rec._bind(one_pass, head + (n, h, w, *map(int, nv)),
-                  taps + (eps, plan.blocks, plan.rows, plan.chan, *have, int(plan.stream),
-                          slots.data_ptr(), *stats), f"{name} one-pass kernel")
-        return rec
-    if plan.form == "moments":
+        entry, what = "vacv_preprocess_nv_one_pass", "one-pass kernel"
+        front = head + (n, h, w, *map(int, nv))
+        rest = (eps, plan.blocks, plan.rows, plan.chan, *have, int(plan.stream),
+                slots.data_ptr(), *stats)
+    elif plan.form == "moments":
         plane, parts = oh * ow, -(-ow // 32) * -(-oh // 8)
         # the u8 planes, then each resize block's moments (6 x 8 bytes) at a 16-byte boundary
         at = -(-n * 3 * plane // 16) * 16
         scratch = torch.empty(at + n * parts * 48, dtype=torch.uint8, device=dev)
         rec.held += (scratch,)
-        rec._bind(moments, head + (scratch.data_ptr(), scratch.data_ptr() + at, n, h, w,
-                                   int(planar)),
-                  taps + (eps, plan.blocks, *have, *stats), f"{name} moments kernels")
-        return rec
-    norm_stats = (*(mean_s if static_norm else zeros), *(std_s if static_norm else zeros))
-    front = head + (n, h, w, *(map(int, nv) if nv is not None else (int(planar),)))
-    rec._bind(nv_resize if nv is not None else resize, front,
-              taps + (int(trunc_u8), eps, int(static_norm), *norm_stats), f"{name} resize kernel")
-    if plan.form == "two_launch":
-        rec.norm, rec.norm_args = norm, (dev.index, head[1], None, n * 3, oh * ow, *have, *stats)
+        entry, what = "vacv_preprocess_moments", "moments kernels"
+        front = head + (scratch.data_ptr(), scratch.data_ptr() + at, n, h, w, int(planar))
+        rest = (eps, plan.blocks, *have, *stats)
+    else:
+        entry = "vacv_preprocess_nv_resize" if nv is not None else "vacv_preprocess_resize"
+        what = "resize kernel"
+        front = head + (n, h, w, *(map(int, nv) if nv is not None else (int(planar),)))
+        norm_stats = (*(mean_s if static_norm else zeros), *(std_s if static_norm else zeros))
+        rest = (int(trunc_u8), eps, int(static_norm), *norm_stats)
+        if plan.form == "two_launch":
+            rec.norm = build.entry("vacv_preprocess_normalize")
+            rec.norm_args = (dev.index, head[1], None, n * 3, oh * ow, *have, *stats)
+    rec.bind(entry, front + taps + rest, f"{name} {what}")
+    rec.top_kind(top, len(front) + 3, len(front) + 2, h - ch)  # the taps' top, then its address
     return rec
 
 
@@ -666,18 +576,10 @@ def preprocess_fused_batch(
     """
     kwargs = dict(top=top, mean=mean, stddev=stddev, normalize=normalize, trunc_u8=trunc_u8,
                   interp=interp)
-    if batch.device.type == "cuda":
-        return prepare_fused_batch(batch, crop_rect, out_size, **kwargs).run(batch, top)
-    span = trace.begin("ops.preprocess_fused_torch") if trace.ON else None
-    try:
-        if batch.device.type != "cpu":
-            raise ValueError(f"no fused preprocess route for device {batch.device}")
-        out = preprocess_fused_batch_torch(batch, crop_rect, out_size, **kwargs)
-        config.record_kernel("preprocess_fused_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    return build.dispatch(
+        "preprocess_fused", batch,
+        lambda: prepare_fused_batch(batch, crop_rect, out_size, **kwargs).run(batch, top),
+        lambda: preprocess_fused_batch_torch(batch, crop_rect, out_size, **kwargs))
 
 
 def prepare_fused_nv_batch(batch, crop_rect=None, out_size=(224, 224), *, is_nv12=False,
@@ -725,23 +627,15 @@ def preprocess_fused_nv_batch(
     width, a crop outside the frame) and for a form that cannot serve the
     call.
     """
+    if form not in FORMS:
+        raise ValueError(f"NV form must be one of {FORMS}, got {form!r}")
     kwargs = dict(is_nv12=is_nv12, to_rgb=to_rgb, top=top, mean=mean, stddev=stddev,
                   normalize=normalize, trunc_u8=trunc_u8)
-    if batch.device.type == "cuda":
-        return prepare_fused_nv_batch(batch, crop_rect, out_size, form=form,
-                                      **kwargs).run(batch, top)
-    span = trace.begin("ops.preprocess_fused_nv_torch") if trace.ON else None
-    try:
-        if batch.device.type != "cpu":
-            raise ValueError(f"no fused NV preprocess route for device {batch.device}")
-        if form not in FORMS:
-            raise ValueError(f"NV form must be one of {FORMS}, got {form!r}")
-        out = preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, **kwargs)
-        config.record_kernel("preprocess_fused_nv_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    return build.dispatch(
+        "preprocess_fused_nv", batch,
+        lambda: prepare_fused_nv_batch(batch, crop_rect, out_size, form=form,
+                                       **kwargs).run(batch, top),
+        lambda: preprocess_fused_nv_batch_torch(batch, crop_rect, out_size, **kwargs))
 
 
 def prepare_fused_planes(planes, out_size, *, interp="linear", mean=None, stddev=None,
@@ -774,15 +668,7 @@ def preprocess_fused_planes(planes, out_size, *, interp="linear", mean=None, std
     kernel does not take (not (N, 3, h, w) u8, an interpolation other than
     linear, cubic or nearest)."""
     kwargs = dict(interp=interp, mean=mean, stddev=stddev, normalize=normalize)
-    if planes.device.type == "cuda":
-        return prepare_fused_planes(planes, out_size, **kwargs).run(planes)
-    span = trace.begin("ops.preprocess_fused_planar_torch") if trace.ON else None
-    try:
-        if planes.device.type != "cpu":
-            raise ValueError(f"no fused planar preprocess route for device {planes.device}")
-        out = preprocess_fused_planes_torch(planes, out_size, **kwargs)
-        config.record_kernel("preprocess_fused_planar_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    return build.dispatch(
+        "preprocess_fused_planar", planes,
+        lambda: prepare_fused_planes(planes, out_size, **kwargs).run(planes),
+        lambda: preprocess_fused_planes_torch(planes, out_size, **kwargs))

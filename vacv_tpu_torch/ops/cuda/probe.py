@@ -19,30 +19,16 @@ and adds their partials in a second launch (``split_plan``).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ... import config
-from ...utils import trace
+from ...core.device_tables import stream_key
 from . import build
 
 # operand type → (result type, K granule of one mma step)
 _TYPES = {torch.bfloat16: (torch.float32, 16), torch.int8: (torch.int32, 32)}
 TILE_M, TILE_N = 64, 128  # the kernel's output tile (csrc/probe_mma.cu)
 CONSUMERS = 3             # its warpgroups, which share a block's reps
-
-
-@functools.lru_cache(maxsize=1)
-def _entry_points():
-    lib = build.library().lib
-    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    fn = lib.vacv_probe_mma
-    fn.restype = i
-    # device, stream, a, lda, b, ldb, out, m, k, n, reps, splits, is_i8
-    fn.argtypes = [i, p, p, ll, p, ll, p, i, i, i, i, i, i]
-    return lib, fn
 
 
 def _check(a, b, reps: int) -> int:
@@ -84,7 +70,9 @@ def split_plan(m: int, n: int, reps: int, sms: int) -> int:
     return -(-reps // per)  # no split left empty
 
 
-def _launch(a, b, reps, m):
+@build.traced("probe_dot")
+def _launch(a, b, reps):
+    m = _check(a, b, reps)
     out_dtype, granule = _TYPES[a.dtype]
     k, n = b.shape
     if k % granule:
@@ -98,18 +86,9 @@ def _launch(a, b, reps, m):
     # One buffer for the splits' partials; the kernel sums them into the
     # first slice, which is the result.
     out = torch.empty((splits, m, n), dtype=out_dtype, device=dev)
-    lib, fn = _entry_points()
-    # The raw handle of the current stream: a probe call is microseconds of
-    # work, and torch.cuda.current_stream() builds a Stream object per call.
-    args = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index), a.data_ptr(), a.stride(0),
-            b.data_ptr(), b.stride(0), out.data_ptr(), m, k, n, int(reps), splits,
-            int(a.dtype == torch.int8))
-    span = trace.begin("native.call") if trace.ON else None
-    rc = fn(*args)
-    if span is not None:
-        trace.end(span)
-    trace.count("native.calls")
-    build.check(lib, rc, "probe kernel")
+    args = (dev.index, stream_key(dev), a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+            out.data_ptr(), m, k, n, int(reps), splits, int(a.dtype == torch.int8))
+    build.call(build.entry("vacv_probe_mma"), args, "probe kernel")
     config.record_kernel("probe_dot")
     return out[0]
 
@@ -121,17 +100,5 @@ def probe_dot(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     Raises ValueError for operands the kernel does not take (other types,
     a row count below reps + 1, K not a multiple of 16 for bf16 or 32 for
     int8, rows that are not contiguous or, for a, not 16-byte aligned)."""
-    span = (trace.begin("ops.probe_dot" if a.is_cuda
-                        else "ops.probe_dot_torch") if trace.ON else None)
-    try:
-        m = _check(a, b, reps)
-        if a.device.type == "cuda":
-            return _launch(a, b, reps, m)
-        if a.device.type != "cpu":
-            raise ValueError(f"no probe route for device {a.device}")
-        out = probe_dot_torch(a, b, reps)
-        config.record_kernel("probe_dot_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    return build.dispatch("probe_dot", a, lambda: _launch(a, b, reps),
+                          lambda: probe_dot_torch(a, b, reps))

@@ -45,14 +45,11 @@ taps at immediate offsets and no barrier.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import numpy as np
 import torch
 
-from ... import config
 from ...core.device_tables import stream_key
 from ...core.types import BorderMode, InterMode
 from ..crop import dynamic_slice
@@ -69,23 +66,6 @@ FAST_LIMIT = 1 << 22
 PATHS = ("auto", "no_stage", "edge_only")  # the kernel's `mode` 0, 1, 2
 _BORDERS = (BorderMode.BORDER_CONSTANT, BorderMode.BORDER_REPLICATE, BorderMode.BORDER_REFLECT,
             BorderMode.BORDER_WRAP, BorderMode.BORDER_REFLECT_101)
-
-
-@functools.lru_cache(maxsize=1)
-def _entry_points():
-    lib = build.library().lib
-    i, p, ll, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    fn = lib.vacv_warp_affine
-    fn.restype = i
-    fn.argtypes = [
-        i, p, p, i, i, i, i, i,       # device, stream, src, is_u8, n, c, h, w
-        ll, ll, ll, ll,               # source strides n, c, y, x
-        p, i, i, ll, ll, ll, ll,      # out, h_out, w_out, output strides n, c, y, x
-        f, f, f, f, f, f,             # the inverse matrix
-        i, i, f, i, i,                # interp, border, border value, vacv, mode
-        p, i,                         # the device top (or null), the frames' rows
-    ]
-    return lib, fn
 
 
 def tile_boxes(minv, h_out: int, w_out: int, interp, h: int, w: int):
@@ -208,61 +188,29 @@ def warp_planes_batch_torch(planes, minv, h_out: int, w_out: int, *, row0=None, 
     return warp_epilogue(res, interp, planes.dtype)
 
 
-class WarpLaunch:
-    """One warp call, prepared (``prepare_warp_planes``): the library's
-    entry point and its arguments with every static field filled in (the
-    shape and strides of the planes and of the output, the inverse matrix,
-    the interpolation, the border and the path).
+class WarpLaunch(build.Launch):
+    """One warp call, prepared (``prepare_warp_planes``): a ``build.Launch``
+    whose arguments hold the shape and strides of the planes and of the
+    output, the inverse matrix, the interpolation, the border and the path.
+    Its ``run`` reads the source ``offset`` bytes past ``planes.data_ptr()``,
+    writes ``out`` (a new tensor when None) and counts
+    ``warp.hwc3_launches`` where the call takes the kernel's 3-channel HWC
+    form (``hwc3_form``).  Its tops: none, or a tensor ``row0``."""
 
-    ``run(planes, row0, out, offset)`` is the per-call part: it allocates
-    the output unless given one, puts in the source's address (``offset``
-    bytes past ``planes.data_ptr()``), the output's and the device top's,
-    makes the call into the kernel library, checks its return code and
-    counts the route, and ``warp.hwc3_launches`` where the call takes the
-    kernel's 3-channel HWC form (``hwc3_form``).  A record runs only
-    sources of the shape, strides, type and device it was prepared for,
-    into outputs of its strides, on the CUDA stream that was current then,
-    with a ``row0`` of the kind it was prepared with (none, or a tensor of
-    the same type and device; an int32 top on the card goes in by its
-    address)."""
-
-    __slots__ = ("device", "shape", "dtype", "lib", "fn", "args", "top", "hwc3")
+    __slots__ = ("hwc3",)
 
     def __init__(self, device, shape, dtype):
-        self.device, self.shape, self.dtype = device, shape, dtype
-        self.lib = self.fn = self.args = self.top = None
+        super().__init__("warp_affine", device, shape, dtype)
         self.hwc3 = False
 
     def run(self, planes, row0=None, out=None, offset=0):
         """Warp into ``out`` (a new tensor when None) and return it.  Traced
         as span ``ops.warp_affine``."""
-        span = trace.begin("ops.warp_affine") if trace.ON else None
-        try:
-            if out is None:
-                out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
-            if self.fn is None:  # an empty output
-                return out
-            args = list(self.args)
-            args[2] = planes.data_ptr() + offset
-            args[12] = out.data_ptr()
-            if self.top is not None:
-                # The kernel reads the top from the device and clamps it there.
-                if self.top == "cast":
-                    row0 = row0.reshape(()).to(device=self.device, dtype=torch.int32)
-                args[-2] = row0.data_ptr()
-            call = trace.begin("native.call") if trace.ON else None
-            rc = self.fn(*args)
-            if call is not None:
-                trace.end(call)
-            trace.count("native.calls")
-            build.check(self.lib, rc, "warp kernel")
-            config.record_kernel("warp_affine")
-            if self.hwc3:
-                trace.count("warp.hwc3_launches")
-            return out
-        finally:
-            if span is not None:
-                trace.end(span)
+        return self._run(planes.data_ptr() + offset, row0, out)
+
+    def _more(self, out):
+        if self.hwc3:
+            trace.count("warp.hwc3_launches")
 
 
 def _check_out(planes, shape, out) -> None:
@@ -316,15 +264,14 @@ def prepare_warp_planes(planes, minv, h_out: int, w_out: int, *, row0=None, rows
         strides = (c * h_out * w_out, h_out * w_out, w_out, 1)  # a new contiguous output's
     else:
         strides = out.stride()
-    if row0 is not None:
-        rec.top = "device" if row0.dtype == torch.int32 and row0.device == dev else "cast"
     m = np.asarray(minv, np.float32).reshape(6)
     rec.hwc3 = hwc3_form(planes, interp)
-    rec.lib, rec.fn = _entry_points()
-    rec.args = (dev.index, stream_key(dev), None, int(planes.dtype == torch.uint8), n, c, h, w,
-                *planes.stride(), None, h_out, w_out, *strides, *(float(v) for v in m),
-                int(InterMode(interp)), int(BorderMode(border)), float(border_value),
-                int(edge_mode == "vacv"), PATHS.index(path), None, h_full)
+    args = (dev.index, stream_key(dev), None, int(planes.dtype == torch.uint8), n, c, h, w,
+            *planes.stride(), None, h_out, w_out, *strides, *(float(v) for v in m),
+            int(InterMode(interp)), int(BorderMode(border)), float(border_value),
+            int(edge_mode == "vacv"), PATHS.index(path), None, h_full)
+    rec.bind("vacv_warp_affine", args, "warp kernel", out_at=12)
+    rec.top_kind(row0, len(args) - 2)
     return rec
 
 
@@ -350,25 +297,22 @@ def warp_planes_batch(planes, minv, h_out: int, w_out: int, *, row0=None, rows=N
     a top that is not one integer, a crop taller than the planes)."""
     kwargs = dict(row0=row0, rows=rows, interp=interp, border=border, border_value=border_value,
                   edge_mode=edge_mode)
-    if planes.device.type == "cuda":
-        if planes.dtype in (torch.uint8, torch.float32):
-            return prepare_warp_planes(planes, minv, h_out, w_out, out=out, path=path,
-                                       **kwargs).run(planes, row0, out)
-        _check(planes, interp, border, row0, rows)
-        out = _output(planes, h_out, w_out, out)
-        # f16 / bf16 / f64: warped in f32 and narrowed on write-out.
-        wide = planes.to(torch.float32)
-        return out.copy_(prepare_warp_planes(wide, minv, h_out, w_out, path=path,
-                                             **kwargs).run(wide, row0))
-    span = trace.begin("ops.warp_affine_torch") if trace.ON else None
-    try:
-        _check(planes, interp, border, row0, rows)
-        out = _output(planes, h_out, w_out, out)
-        if planes.device.type != "cpu":
-            raise ValueError(f"no warp route for device {planes.device}")
-        out.copy_(warp_planes_batch_torch(planes, minv, h_out, w_out, **kwargs))
-        config.record_kernel("warp_affine_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    return build.dispatch(
+        "warp_affine", planes, lambda: _warp_card(planes, minv, h_out, w_out, out, path, kwargs),
+        lambda: _output(planes, h_out, w_out, out).copy_(
+            warp_planes_batch_torch(planes, minv, h_out, w_out, **kwargs)))
+
+
+def _warp_card(planes, minv, h_out, w_out, out, path, kwargs):
+    """``warp_planes_batch`` on the card: u8 and f32 planes are
+    ``prepare_warp_planes``, then its ``run``; f16, bf16 and f64 planes are
+    warped in f32 and narrowed on write-out."""
+    row0 = kwargs["row0"]
+    if planes.dtype in (torch.uint8, torch.float32):
+        return prepare_warp_planes(planes, minv, h_out, w_out, out=out, path=path,
+                                   **kwargs).run(planes, row0, out)
+    _check(planes, kwargs["interp"], kwargs["border"], row0, kwargs["rows"])
+    out = _output(planes, h_out, w_out, out)
+    wide = planes.to(torch.float32)
+    return out.copy_(prepare_warp_planes(wide, minv, h_out, w_out, path=path,
+                                         **kwargs).run(wide, row0))

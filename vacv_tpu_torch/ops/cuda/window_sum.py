@@ -23,7 +23,6 @@ memory, so that a CPU test can hold each shape to the card's limits.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -32,7 +31,6 @@ import torch
 
 from ... import config
 from ...core.device_tables import stream_cached, stream_key
-from ...utils import trace
 from . import build
 
 
@@ -147,20 +145,11 @@ def window_sums_torch(x: torch.Tensor, th: int, tw: int, *, sq: bool = True,
     return wnd2, wnd1
 
 
-@functools.lru_cache(maxsize=1)
-def _entry_points():
-    lib = build.library().lib
-    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    fn = lib.vacv_window_sum
-    fn.restype = i
-    # device, stream, x, c, h, w, strides c/y/x, th, tw, sq, sums, rows, threads, kr, kc
-    fn.argtypes = [i, p, p, i, i, i, ll, ll, ll, i, i, p, p, i, i, i, i]
-    return lib, fn
-
-
+@build.traced("window_sum")
 def _launch(x, th, tw, sq, sums, rows=None):
     """One launch; ``rows`` sets the strip height in place of
     ``launch_plan``'s (a measurement's knob, not the API's)."""
+    _check(x, th, tw, sq, sums)
     c, h, w = x.shape
     if min(x.stride()) < 0:
         raise ValueError("window-sum kernel needs non-negative strides")
@@ -172,16 +161,10 @@ def _launch(x, th, tw, sq, sums, rows=None):
     ho, wo = h - th + 1, w - tw + 1
     wnd2 = torch.empty((ho, wo), dtype=torch.float32, device=dev) if sq else None
     wnd1 = torch.empty((c, ho, wo), dtype=torch.float32, device=dev) if sums else None
-    lib, fn = _entry_points()
     args = (dev.index, stream_key(dev), x.data_ptr(), c, h, w, *x.stride(), th, tw,
             None if wnd2 is None else wnd2.data_ptr(), None if wnd1 is None else wnd1.data_ptr(),
             plan.rows, plan.threads, plan.kr, plan.kc)
-    span = trace.begin("native.call") if trace.ON else None
-    rc = fn(*args)
-    if span is not None:
-        trace.end(span)
-    trace.count("native.calls")
-    build.check(lib, rc, "window-sum kernel")
+    build.call(build.entry("vacv_window_sum"), args, "window-sum kernel")
     config.record_kernel("window_sum")
     return wnd2, wnd1
 
@@ -194,17 +177,5 @@ def window_sums(x: torch.Tensor, th: int, tw: int, *, sq: bool = True, sums: boo
 
     Raises ValueError for inputs the kernel does not take (not rank 3, not
     f32, a window larger than the image, neither sum asked for)."""
-    span = (trace.begin("ops.window_sum" if x.is_cuda
-                        else "ops.window_sum_torch") if trace.ON else None)
-    try:
-        _check(x, th, tw, sq, sums)
-        if x.device.type == "cuda":
-            return _launch(x, th, tw, sq, sums)
-        if x.device.type != "cpu":
-            raise ValueError(f"no window-sum route for device {x.device}")
-        out = window_sums_torch(x, th, tw, sq=sq, sums=sums)
-        config.record_kernel("window_sum_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    return build.dispatch("window_sum", x, lambda: _launch(x, th, tw, sq, sums),
+                          lambda: window_sums_torch(x, th, tw, sq=sq, sums=sums))

@@ -9,14 +9,11 @@ The counterpart of ``vacv_tpu/ops/pallas/yuv2bgr.py::nv_to_bgr_pallas``.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ... import config
+from ...core.device_tables import stream_key
 from ..cvt_color import check_nv_planes, nv_to_bgr_planes_torch
-from ...utils import trace
 from . import build
 
 # A thread takes two Y rows; the grid's y dimension (at most 65535) counts
@@ -46,17 +43,7 @@ def vector_width(h: int, w: int, y_addr: int, y_stride: int, vu_addr: int, vu_st
     return 2
 
 
-@functools.lru_cache(maxsize=1)
-def _entry_points():
-    lib = build.library().lib
-    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    fn = lib.vacv_yuv2bgr
-    fn.restype = i
-    # device, stream, y, y_stride, vu, vu_stride, out, h, w, is_nv12, vec
-    fn.argtypes = [i, p, p, ll, p, ll, p, i, i, i, i]
-    return lib, fn
-
-
+@build.traced("yuv2bgr")
 def _launch(y_plane, vu_plane, is_nv12):
     check_nv_planes(y_plane, vu_plane)
     if y_plane.device != vu_plane.device:
@@ -71,17 +58,9 @@ def _launch(y_plane, vu_plane, is_nv12):
     if h and w:
         vec = vector_width(h, w, y_plane.data_ptr(), y_plane.stride(0),
                            vu_plane.data_ptr(), vu_plane.stride(0), out.data_ptr())
-        lib, fn = _entry_points()
-        args = (dev.index, torch.cuda.current_stream(dev).cuda_stream,
-                y_plane.data_ptr(), y_plane.stride(0),
-                vu_plane.data_ptr(), vu_plane.stride(0),
-                out.data_ptr(), h, w, int(is_nv12), vec)
-        span = trace.begin("native.call") if trace.ON else None
-        rc = fn(*args)
-        if span is not None:
-            trace.end(span)
-        trace.count("native.calls")
-        build.check(lib, rc, f"yuv2bgr kernel ({vec} bytes a thread)")
+        args = (dev.index, stream_key(dev), y_plane.data_ptr(), y_plane.stride(0),
+                vu_plane.data_ptr(), vu_plane.stride(0), out.data_ptr(), h, w, int(is_nv12), vec)
+        build.call(build.entry("vacv_yuv2bgr"), args, f"yuv2bgr kernel ({vec} bytes a thread)")
         config.record_kernel("yuv2bgr")
     return out[0], out[1], out[2]
 
@@ -92,16 +71,5 @@ def nv_to_bgr(y_plane, vu_plane, *, is_nv12: bool):
     Raises ValueError for planes the kernel does not take (not u8, an
     odd width, a VU plane shorter than ⌈h/2⌉ rows, rows that are not
     contiguous)."""
-    span = (trace.begin("ops.yuv2bgr" if y_plane.is_cuda
-                        else "ops.yuv2bgr_torch") if trace.ON else None)
-    try:
-        if y_plane.device.type == "cuda":
-            return _launch(y_plane, vu_plane, is_nv12)
-        if y_plane.device.type != "cpu":
-            raise ValueError(f"no yuv2bgr route for device {y_plane.device}")
-        out = nv_to_bgr_planes_torch(y_plane, vu_plane, is_nv12=is_nv12)
-        config.record_kernel("yuv2bgr_torch")
-        return out
-    finally:
-        if span is not None:
-            trace.end(span)
+    return build.dispatch("yuv2bgr", y_plane, lambda: _launch(y_plane, vu_plane, is_nv12),
+                          lambda: nv_to_bgr_planes_torch(y_plane, vu_plane, is_nv12=is_nv12))
