@@ -12,7 +12,8 @@ Phases, each printed as it runs:
 2. build: the CUDA kernels from ``vacv_tpu_torch/csrc``, one ``nvcc`` per
    source started together, into ``build/vacv_tpu_torch/``, with nvcc's
    ``-Xptxas -v`` lines, and the u8 linear warp kernels' registers and
-   spills (``warp_kernel`` and its 3-channel HWC form) on lines of their own;
+   spills (``warp_kernel`` and its 3-channel HWC form) and the fused warp's
+   (``moments_resize_kernel<WarpSource, ...>``) on lines of their own;
 3. compare: every kernel against its plain PyTorch version on the card,
    at full width: the config-4 fused kernel (32 frames of 1080x1920, the
    BASELINE config-4 crop, 224x224 out) and odd frames, its moments form
@@ -53,7 +54,11 @@ Phases, each printed as it runs:
    every interpolation, self and static statistics: the u8 planes bit for
    bit or, where cuBLAS orders the plain version's sums otherwise, 1 LSB
    apart on the truncation step; self statistics bit for bit their integer
-   statistics); the
+   statistics); the fused warp (``prepare_fused_warp``: config 5's warp
+   sampled inside kernel #1's moments form) against the two-launch chain it
+   replaces, bit for bit, at 2 and 16 config-5 frames, the config's crop and
+   device tops inside and clamped, linear, cubic and nearest tails and a
+   static mean, and the host twin of the integer statistics; the
    window-sum kernel against the ones-band products (720p x 48²: an HWC
    u8-valued image, random f32 planes, flat and low-variance images HWC
    and planar; and odd shapes; within 1e-5 of the largest sum, u8
@@ -70,9 +75,9 @@ Phases, each printed as it runs:
    same, on NV21 buffers), the NV chain (a cubic NV config: yuv2bgr and
    normalize once per frame), config 2 (``cvt_color`` → CHW → f32),
    config 5 (``Preprocessor.batch`` on two batches of two 2560x1440
-   frames with a device crop top: one warp launch, reading the uncut
-   frames at that top, and one planar tail call per batch, no normalize
-   launch) and the tracking flow of
+   frames with a device crop top: one fused warp call per batch, reading
+   the uncut frames at that top, no warp, planar tail or normalize launch
+   of its own) and the tracking flow of
    ``examples/camera_tracking.py`` (six 720x1280 NV21 frames with a
    drifting 48x48 target: ``cvt_color`` → ``match_template`` (one
    window-sum launch a frame) → ``min_max_loc`` → a device top → the
@@ -119,7 +124,10 @@ Phases, each printed as it runs:
    f32; the kernel each call launches, its ``warp.hwc3_launches`` and its
    tiles by path) with the kernels launched per call (one each, asserted),
    config 5's batch at 2 and 16 frames and
-   the tracking frame by kernel, yuv2bgr at 1080p, 720p and 144x176 (warm
+   the tracking frame by kernel, the fused warp against the two-launch
+   chain at 2 and 16 config-5 frames (queued and profiler device time, in
+   turns, beside the chain's bytes at 3.35 TB/s), yuv2bgr at 1080p, 720p
+   and 144x176 (warm
    and with its source out of L2) and the fused NV kernel at the camera batch (self and static
    statistics) and the tracking frame (one launch each, asserted), the
    config-4 kernel's queued device time (``queued_us``) at 32 frames,
@@ -142,7 +150,13 @@ code.  ``python3 chip_smoke.py --parent DIR`` runs
 the whole script and then ``--kernel-times`` in fresh processes, in DIR
 (an unpacked ``git archive`` of an earlier commit, this script copied in)
 and in this checkout, in turns (parent, change, change, parent), and
-prints the two side by side.
+prints the two side by side, after comparing the two trees' kernel
+libraries SASS for SASS (``cuobjdump -sass``: config 4's
+``moments_resize_kernel<BgrSource, 2, 2>``, ``scale_u8_kernel`` and
+``nv_one_pass_kernel`` must be the parent's).  ``python3 chip_smoke.py
+--fused-warp [--parent DIR]`` runs the device and build phases, the fused
+warp's compare and timing and, with ``--parent``, the SASS comparison
+alone.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -183,6 +197,9 @@ KERNELS = {
                                 "vacv_tpu/ops/pallas/preprocess.py:328"),
     # No TPU kernel: the JAX box sums are XLA ones-band products.
     "window_sum": ("vacv_tpu_torch/csrc/window_sum.cu", "vacv_tpu/ops/match_template.py:37"),
+    # Config 5 in one call: the warp sampled inside kernel #1's moments form.
+    "preprocess_fused_warp": ("vacv_tpu_torch/csrc/preprocess_warp.cu",
+                              "vacv_tpu/ops/pallas/warp_affine.py:365"),
 }
 # BASELINE config 5 (benchmarks/baseline_configs.py:148-186): 2560x1440
 # frames, crop (64, 36)-(2496, 1404), a rotated warp to 1216x684, 224 out,
@@ -252,9 +269,10 @@ def phase_build() -> None:
     for line in lines:
         if "ptxas info" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
-    # The u8 linear warp kernels' registers and spills, for PERF.md.
+    # The u8 linear warp kernels' and the fused warp's registers and spills, for PERF.md.
     for i, line in enumerate(lines):
-        name = re.search(r"Function properties for (\w*warp_kernel(?:_hwc3|IhLi1E)\w*)", line)
+        name = re.search(r"Function properties for (\w*warp_kernel(?:_hwc3|IhLi1E)\w*"
+                         r"|\w*moments_resize_kernel\w*WarpSource\w*)", line)
         if name:
             used = next((x for x in lines[i + 2:i + 6] if "Used" in x), "")
             log(f"[build] {name.group(1)}: {lines[i + 1].strip()}; {used.split(':', 1)[-1].strip()}")
@@ -896,6 +914,92 @@ def phase_compare_planar() -> float:
     return worst
 
 
+def config5_source(batch, top=None):
+    """Config 5's warp source in ``batch`` with ``top`` (None: the config's
+    crop; a device int32: the uncut rows at that top, clamped): (planes,
+    the inverse matrix, the warp's crop keywords)."""
+    import vacv_tpu_torch as vt
+
+    left, top0, right, bottom = RECT5
+    minv = vt.invert_affine(np.asarray(M5, np.float32))
+    if top is None:
+        return batch[:, top0:bottom, left:right].permute(0, 3, 1, 2), minv, {}
+    return batch[:, :, left:right].permute(0, 3, 1, 2), minv, dict(row0=top, rows=bottom - top0)
+
+
+def fused_warp_pair(batch, interp="linear", top=None, **kw):
+    """Config 5's fused warp (``prepare_fused_warp``, one call), the
+    two-launch chain it replaces (the warp into planes, then the planar
+    tail) and their plain version (``warp_planes_batch_torch``, then
+    ``preprocess_fused_planes_torch``) on ``batch`` with ``top``
+    (``config5_source``): (fused, chain, plain) as functions, and the
+    fused call's truncated u8 planes (the head of its scratch, which each
+    of its runs rewrites)."""
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+    from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
+
+    planes, minv, at = config5_source(batch, top)
+    rec = pk.prepare_fused_warp(planes, minv, WARP5[1], WARP5[0], (OUT, OUT), interp=interp,
+                                **at, **kw)
+    require(rec is not None, "config 5 does not take the fused warp")
+    n = planes.shape[0]
+
+    def two(warp, tail):
+        return lambda: tail(warp(planes, minv, WARP5[1], WARP5[0], **at), (OUT, OUT),
+                            interp=interp, **kw)
+
+    return (lambda: rec.run(planes, top), two(warp_planes_batch, pk.preprocess_fused_planes),
+            two(warp_planes_batch_torch, pk.preprocess_fused_planes_torch),
+            rec.held[-1][:n * 3 * OUT * OUT].view(n, 3, OUT, OUT))
+
+
+def phase_compare_fused_warp() -> float:
+    """The fused warp (``csrc/preprocess_warp.cu``) at config 5's geometry,
+    2 and 16 frames, the config's crop and device tops inside, clamped
+    below and above; linear, cubic and nearest tails; a static mean.  Held
+    to the two-launch chain it replaces bit for bit (its output and its
+    truncated u8 planes against the chain's ``normalize=False`` planes),
+    and to the plain version: its u8 planes at ``check_planar_u8``'s bar
+    over the plain warp's planes, its output at cosine >= 1-1e-6; with self
+    statistics, bit for bit the host twin of the integer statistics over
+    its planes.  Returns the worst max-abs error against the plain
+    version."""
+    from vacv_tpu_torch.ops.cuda import preprocess as pk
+    from vacv_tpu_torch.ops.cuda.warp_affine import warp_planes_batch, warp_planes_batch_torch
+
+    cases = [(n, interp, top, kw) for n in (BATCH5, BATCH5_HOST)
+             for top in (None, 36, -5, 400) for interp, kw in (("linear", {}),)]
+    cases += [(BATCH5, interp, 36, {}) for interp in ("cubic", "nearest")]
+    cases += [(BATCH5, "linear", 36, dict(mean=STATIC["mean"]))]
+    worst = 0.0
+    for n, interp, top, kw in cases:
+        batch = make_batch(n, H5, W5, seed=170 + n)
+        t = None if top is None else torch.tensor(top, dtype=torch.int32, device="cuda")
+        fused, chain, plain, u8 = fused_warp_pair(batch, interp, t, **kw)
+        got, want = fused(), chain()
+        torch.cuda.synchronize()
+        label = f"fused warp config 5 {n} frames {interp} top {top} {kw or ''}"
+        require(torch.equal(got, want), f"{label}: differs from the two-launch chain "
+                f"(max abs {(got - want).abs().max().item()})")
+        planes, minv, at = config5_source(batch, t)
+        raw = pk.preprocess_fused_planes(warp_planes_batch(planes, minv, WARP5[1], WARP5[0], **at),
+                                         (OUT, OUT), interp=interp, normalize=False)
+        torch.cuda.synchronize()
+        require(torch.equal(u8.float(), raw), f"{label}: u8 planes differ from the chain's")
+        log(f"[compare] {label}: bit-exact against the two-launch chain (output and u8 planes)")
+        check_planar_u8(f"{label} u8 planes against the plain version", u8.float(),
+                        warp_planes_batch_torch(planes, minv, WARP5[1], WARP5[0], **at),
+                        (OUT, OUT), interp)
+        worst = max(worst, check(f"{label} against the plain version", got, plain(), "cos"))
+        if not kw:
+            mu, inv = pk.one_pass_stats(raw)
+            require(torch.equal(got, (raw - mu[..., None, None]) * inv[..., None, None]),
+                    f"{label}: not the integer statistics of its planes")
+    log(f"[compare] fused warp: bit for bit the two-launch chain; worst max_abs={worst} "
+        "against the plain version")
+    return worst
+
+
 def close_response(label, got, want, mode, x, k) -> float:
     """A match_template response against the plain chain's on the card, at
     the CPU tests' bars: NORMED modes within 1e-4; CCORR and CCOEFF within
@@ -989,33 +1093,41 @@ def phase_compare_window_sum() -> float:
 
 def phase_main_config5() -> dict:
     """BASELINE config 5: crop → one warp over the batch → resize → CHW
-    f32 → normalize of the whole warped batch in one planar call, the crop
-    top moving on the device."""
+    f32 → normalize of the whole warped batch, the crop top moving on the
+    device; then the same with a static mean and stddev, a tail the fused
+    warp does not take.  Returns the launches of both."""
     from vacv_tpu_torch import config
     from vacv_tpu_torch.core.types import VRect
     from vacv_tpu_torch.models import PreprocessConfig, Preprocessor
 
-    pre = Preprocessor(PreprocessConfig(crop_rect=VRect(*RECT5), warp=(M5, WARP5),
-                                        out_size=(OUT, OUT)), device="cuda")
-    route = pre.describe_route((H5, W5, 3), torch.uint8)
-    require(route == "cuda_warp", f"config 5 route is {route}")
     batches = [make_batch(BATCH5, H5, W5, seed=60 + i) for i in range(2)]
     tops = [torch.tensor(t, dtype=torch.int32, device="cuda") for t in (36, 30)]
-    config.reset_kernel_counts()
-    outs = [pre.batch(b, top=t) for b, t in zip(batches, tops)]
-    torch.cuda.synchronize()
-    names = ("warp_affine", "preprocess_fused_planar", "normalize_fused")
-    launches = {k: config.kernel_count(k) for k in names + tuple(f"{k}_torch" for k in names)}
-    log(f"[main] config 5 route={route} launches={launches} for 2 batches of {BATCH5}")
-    # Per batch: one warp launch, one planar tail call, no normalize a frame.
-    require(launches == dict.fromkeys(launches, 0) | {"warp_affine": 2,
-                                                      "preprocess_fused_planar": 2},
-            f"config 5 launches {launches}")
-    with config.backend("torch"):
-        require(pre.describe_route((H5, W5, 3)) == "torch_chain", "torch backend, config 5")
-        refs = [pre.batch(b, top=t) for b, t in zip(batches, tops)]
-    hold_to_chain("config 5", outs, refs, (BATCH5, 3, OUT, OUT))
-    return launches
+    names = ("preprocess_fused_warp", "warp_affine", "preprocess_fused_planar", "normalize_fused")
+    total = dict.fromkeys(names, 0)
+    # Per batch: with self statistics one fused warp call (the warp sampled
+    # inside the planar tail's resize), no warp or planar launch of its own;
+    # with static statistics the warp's launch, then the planar tail's.
+    for label, kw, want in (
+            ("config 5", {}, {"preprocess_fused_warp": 2}),
+            ("config 5, static statistics", STATIC,
+             {"warp_affine": 2, "preprocess_fused_planar": 2})):
+        pre = Preprocessor(PreprocessConfig(crop_rect=VRect(*RECT5), warp=(M5, WARP5),
+                                            out_size=(OUT, OUT), **kw), device="cuda")
+        route = pre.describe_route((H5, W5, 3), torch.uint8)
+        require(route == "cuda_warp", f"{label} route is {route}")
+        config.reset_kernel_counts()
+        outs = [pre.batch(b, top=t) for b, t in zip(batches, tops)]
+        torch.cuda.synchronize()
+        launches = {k: config.kernel_count(k) for k in names + tuple(f"{k}_torch" for k in names)}
+        log(f"[main] {label} route={route} launches={launches} for 2 batches of {BATCH5}")
+        require(launches == dict.fromkeys(launches, 0) | want, f"{label} launches {launches}")
+        with config.backend("torch"):
+            require(pre.describe_route((H5, W5, 3)) == "torch_chain", f"torch backend, {label}")
+            refs = [pre.batch(b, top=t) for b, t in zip(batches, tops)]
+        hold_to_chain(label, outs, refs, (BATCH5, 3, OUT, OUT))
+        for k in names:
+            total[k] += launches[k]
+    return total
 
 
 def tracking_stream(n=6, h=TRACK_H, w=TRACK_W, seed=3):
@@ -1391,14 +1503,16 @@ def kernel_times(card: str, config4_batches=(BATCH,)) -> dict:
     norm = sum(t for k, (t, _) in kernels.items() if any(s in k for s in NORMALIZE_KERNELS))
     warp = sum(t for k, (t, _) in kernels.items() if "warp_kernel" in k)
     planar = sum(t for k, (t, _) in kernels.items() if "PlanarSource" in k or "scale_u8" in k)
+    fused = sum(t for k, (t, _) in kernels.items() if "WarpSource" in k)
     log(f"[time]   of which normalize {norm:.2f} us, warp {warp:.2f} us, planar tail "
-        f"{planar:.2f} us")
+        f"{planar:.2f} us (the scale launch included), fused warp {fused:.2f} us")
     for k, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"[time]   {t:9.2f} us/batch {100 * t / total:5.1f}%  {c:g} launches/batch  {k[:120]}")
     out["config 5 main path"] = (total, sum(c for _, c in kernels.values()))
     out["config 5 normalize share"] = (norm, 0)
     out["config 5 warp share"] = (warp, 0)
     out["config 5 planar tail share"] = (planar, 0)
+    out["config 5 fused warp share"] = (fused, 0)
     total, kernels = device_profile(lambda: pre.batch(batch16, top=dev_top), 10)
     warp = sum(t for k, (t, _) in kernels.items() if "warp_kernel" in k)
     log(f"[time] config 5 main path, {BATCH5_HOST} frames: {total:.2f} us device per batch, the "
@@ -2042,6 +2156,99 @@ def time_planar(card: str) -> dict:
     return timing(k_ms, p_ms, moved / HBM_TBPS / 1e9, "bytes")
 
 
+def time_fused_warp(card: str) -> dict:
+    """The fused warp against the two-launch chain at config 5, device top,
+    2 and 16 frames: queued device time (``queued_us``) and the profiler's
+    device time by kernel, in turns (chain, fused, fused, chain); its bound
+    (``portbench/work.py``'s bytes of the chain at 3.35 TB/s); the plain
+    chain (``warp_planes_batch_torch``, then ``preprocess_fused_planes_torch``)
+    at 2 frames for the kernels line."""
+    from portbench import work
+
+    cfg = json.loads(Path("portbench/configs/cfg5_warp_1440p.json").read_text())
+    top = torch.tensor(RECT5[1], dtype=torch.int32, device="cuda")
+    result = None
+    for n in (BATCH5, BATCH5_HOST):
+        batch = make_batch(n, H5, W5, seed=180 + n)
+        fused, chain, plain, _ = fused_warp_pair(batch, "linear", top)
+        queued = [queued_us(f) for f in (chain, fused, fused, chain)]
+        prof = [device_profile(f, 20) for f in (chain, fused)]
+        bound = work.chain_bytes(cfg, n) / HBM_TBPS / 1e6  # us
+        log(f"[time] fused warp config 5, {n} frames, device top: queued device "
+            f"{queued[1]:.2f}, {queued[2]:.2f} us against the two-launch chain's "
+            f"{queued[0]:.2f}, {queued[3]:.2f} us; profiler {prof[1][0]:.2f} us against "
+            f"{prof[0][0]:.2f} us; the chain's bytes at {HBM_TBPS} TB/s {bound:.2f} us = "
+            f"{100 * bound / min(queued[1:3]):.1f}% of the fused form's queued time [{card}]")
+        for label, (_, kernels) in zip(("chain", "fused"), prof):
+            for k, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
+                log(f"[time]   {label}: {t:9.2f} us/batch  {c:g} launches/batch  {k[:110]}")
+        if n == BATCH5:
+            k_ms, p_ms, kr, pr = time_in_turns(fused, plain, 100, 5)
+            report(f"fused warp config 5 {n} frames", k_ms, p_ms, kr, pr,
+                   work.chain_bytes(cfg, n), (n, "frames"), card)
+            result = timing(k_ms, p_ms, bound / 1e3, "bytes")
+    return result
+
+
+def sass_functions(lib: Path) -> dict:
+    """{demangled kernel name: [its SASS bodies]} of a kernel library, by
+    ``cuobjdump -sass`` and ``cu++filt``; a kernel compiled in two sources
+    has two bodies."""
+    cuda = Path("/usr/local/cuda/bin")
+    text = subprocess.run([str(cuda / "cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    bodies, name, lines = {}, None, []
+    for line in text.splitlines() + ["Function : <end>"]:
+        if "Function : " in line:
+            if name is not None:
+                bodies.setdefault(name, []).append("\n".join(lines))
+            name, lines = line.split("Function : ", 1)[1].strip(), []
+        elif name is not None and line.strip().startswith("/*"):
+            lines.append(line.strip())
+    names = list(bodies)
+    import shutil
+
+    filt = next(f for f in (str(cuda / "cu++filt"), shutil.which("c++filt")) if f and Path(f).exists())
+    demangled = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    out = {}
+    for m, d in zip(names, demangled):  # "<unnamed>" and "(int)2" as the profiler spells them
+        d = d.replace("<unnamed>", "(anonymous namespace)").replace("(int)", "")
+        out.setdefault(d, []).extend(bodies[m])
+    return out
+
+
+def compare_sass(parent: Path) -> None:
+    """Each kernel of the parent's library against this tree's, SASS for
+    SASS: the parent's library built in a fresh process in ``parent``,
+    both dumped by ``sass_functions``.  Config 4's
+    ``moments_resize_kernel<BgrSource, 2, 2>``, ``scale_u8_kernel`` and the
+    tracking frame's ``nv_one_pass_kernel`` must be unchanged."""
+    from vacv_tpu_torch.ops.cuda import build
+
+    proc = subprocess.run([sys.executable, "-c", "from vacv_tpu_torch.ops.cuda import build; "
+                           "print(build.library().path)"], cwd=parent, capture_output=True,
+                          text=True, timeout=900)
+    require(proc.returncode == 0, f"the parent's library did not build: {proc.stderr[-2000:]}")
+    old = sass_functions(Path(proc.stdout.strip().splitlines()[-1]))
+    new = sass_functions(build.library().path)
+    same = [k for k in old if k in new and all(b in new[k] for b in old[k])]
+    changed = [k for k in old if k in new and k not in same]
+    added = [k for k in new if k not in old]
+    log(f"[sass] {len(same)} kernels of the parent unchanged, {len(changed)} changed, "
+        f"{len(added)} new, {len([k for k in old if k not in new])} gone")
+    for k in changed:
+        log(f"[sass]   changed: {k[:160]}")
+    for k in added:
+        log(f"[sass]   new: {k[:160]} ({len(new[k][0].splitlines()) // 2} instructions)")
+    for want in ("moments_resize_kernel<(anonymous namespace)::BgrSource, 2, 2>",
+                 "scale_u8_kernel", "nv_one_pass_kernel"):
+        keys = [k for k in old if want in k]
+        require(keys and all(k in same for k in keys), f"{want}: SASS not the parent's")
+        log(f"[sass] {want}: unchanged ({len(keys)} instantiation(s), "
+            f"{', '.join(str(len(old[k][0].splitlines()) // 2) for k in keys)} instructions)")
+
+
 # Kernel-name parts of the tracking frame's named shares.
 TRACKING_SHARES = {
     "fused NV kernel": ("nv_one_pass", "NvSource", "normalize_kernel"),
@@ -2244,8 +2451,8 @@ def harness_tests():
 
 def phase_harness(card: str) -> dict:
     """CvProfile over the five BASELINE configs; every row must pass at
-    the 1e-4 bar, and the kernels of configs 2, 4 and 5 (the warp and the
-    planar tail) must have run."""
+    the 1e-4 bar, and the kernels of configs 2, 4 and 5 (the fused warp)
+    must have run."""
     from vacv_tpu_torch import config
     from vacv_tpu_torch.profile import CvProfile
 
@@ -2253,7 +2460,7 @@ def phase_harness(card: str) -> dict:
     prof = CvProfile(k_test_times=2, k_log_batch_size=2)
     prof.profile(harness_tests(), verbose=True)
     torch.cuda.synchronize()
-    names = ("yuv2bgr", "preprocess_fused", "warp_affine", "preprocess_fused_planar")
+    names = ("yuv2bgr", "preprocess_fused", "preprocess_fused_warp")
     launches = {k: config.kernel_count(k) for k in names}
     log(f"[harness] launches={launches} [{card}]")
     ok = prof.print_results()
@@ -2593,6 +2800,13 @@ def main() -> int:
         print(json.dumps({"kernel_times": kernel_times(card, CONFIG4_BATCHES)}), flush=True)
         return 0
     parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
+    if "--fused-warp" in sys.argv:
+        phase_compare_fused_warp()
+        time_fused_warp(card)
+        if parent:
+            compare_sass(Path(parent))
+        print(json.dumps({"ok": True, "fused_warp": True}), flush=True)
+        return 0
     errs = {
         "preprocess_fused": phase_compare(),
         "preprocess_fused_nv": phase_compare_nv(),
@@ -2603,6 +2817,7 @@ def main() -> int:
         "probe_dot": phase_compare_probe(),
         "preprocess_fused_planar": phase_compare_planar(),
         "window_sum": phase_compare_window_sum(),
+        "preprocess_fused_warp": phase_compare_fused_warp(),
     }
     # Each main path is driven with the counts set to 0 just before it
     # and read just after (inside each phase).
@@ -2611,8 +2826,8 @@ def main() -> int:
     launches["yuv2bgr"] = chain["yuv2bgr"] + phase_main_config2()
     launches["normalize_fused"] = chain["normalize_fused"]
     config5 = phase_main_config5()
-    launches["warp_affine"] = config5["warp_affine"]
-    launches["preprocess_fused_planar"] = config5["preprocess_fused_planar"]
+    for k in ("warp_affine", "preprocess_fused_planar", "preprocess_fused_warp"):
+        launches[k] = config5[k]
     tracking = phase_main_tracking()
     launches["match_corr"] = tracking["match_corr"]
     launches["window_sum"] = tracking["window_sum"]
@@ -2620,7 +2835,7 @@ def main() -> int:
     launches["preprocess_fused_nv"] += tracking["preprocess_fused_nv"]
     launches["probe_dot"], probe_times = phase_main_probe(card)
     harness = phase_harness(card)
-    for k in ("yuv2bgr", "preprocess_fused", "warp_affine", "preprocess_fused_planar"):
+    for k in ("yuv2bgr", "preprocess_fused", "preprocess_fused_warp"):
         launches[k] += harness[k]
     frontend = phase_frontend(card)
     launches["preprocess_fused"] += frontend["preprocess_fused"]
@@ -2633,7 +2848,8 @@ def main() -> int:
 
     dist.destroy_process_group()  # the NCCL world of one from make_mesh()
     times = {"preprocess_fused": phase_time(card), **phase_time_nv(card),
-             **phase_time_warp_corr(card), "probe_dot": probe_times}
+             **phase_time_warp_corr(card), "probe_dot": probe_times,
+             "preprocess_fused_warp": time_fused_warp(card)}
     per_call = kernel_times(card)
     for label, (_, n_launches) in per_call.items():
         if label.startswith(("normalize", "warp", "yuv2bgr", "NV21")):
@@ -2642,6 +2858,7 @@ def main() -> int:
         "one kernel launch per call at every timed shape")
     check_written_once(card)
     if parent:  # each tree's times in fresh processes, in turns
+        compare_sass(Path(parent))
         here = Path(__file__).resolve().parent
         runs = [tree_kernel_times(Path(parent), "parent"), tree_kernel_times(here, "change"),
                 tree_kernel_times(here, "change"), tree_kernel_times(Path(parent), "parent")]

@@ -247,6 +247,37 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
             assert not re.search(r"\.(argtypes|restype)\b", path.read_text()), path
 
 
+def test_the_fused_warps_fixed_arguments_are_the_c_struct():
+    """``_WarpMomentsArgs`` lays out ``WarpMomentsArgs`` of
+    ``csrc/preprocess_warp.cu`` field for field: the same names, types and
+    array lengths in the same order, so the same offsets."""
+    import ctypes
+    import re
+
+    from vacv_tpu_torch.ops.cuda import build
+    from vacv_tpu_torch.ops.cuda.preprocess import _WarpMomentsArgs
+
+    c_types = {"void*": ctypes.c_void_p, "const int*": ctypes.c_void_p,
+               "const float*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+               "int": ctypes.c_int, "float": ctypes.c_float}
+    text = (build.SRC_DIR / "preprocess_warp.cu").read_text()
+    body = re.search(r"struct WarpMomentsArgs \{(.*?)\n\};", text, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if not decl:
+            continue
+        ctype, names = re.match(r"(.*?)\s*(\w+(?:\[\d+\])?(?:\s*,\s*\w+(?:\[\d+\])?)*)$",
+                                decl).groups()
+        for name in names.split(","):
+            name, count = re.match(r"(\w+)(?:\[(\d+)\])?$", name.strip()).groups()
+            t = c_types[ctype]
+            fields.append((name, t * int(count) if count else t))
+    assert [(n, getattr(t, "_length_", 0), getattr(t, "_type_", t)) for n, t in fields] == \
+        [(n, getattr(t, "_length_", 0), getattr(t, "_type_", t)) for n, t in
+         _WarpMomentsArgs._fields_]
+
+
 # ---- the default device: the card unless the caller asks for the CPU ----
 
 def test_numpy_input_lands_on_the_default_device():

@@ -11,12 +11,13 @@ call and the same bits on a second call; the warp kernel bit-exact on u8
 and f32 through each of its three paths (within 5e-3 on f32 in the older
 sweep), its 3-channel u8 HWC form at config 5 (16 frames, both clamps of
 a device top), at every base alignment and under every border rule, and
-``warp.hwc3_launches`` against the kernel the profiler saw; the correlation kernel
+``warp.hwc3_launches`` against the kernel the profiler saw (none for a
+config-5 batch, which takes the fused warp); the correlation kernel
 within 1e-5 of the largest response magnitude; the tensor-core probe
 bit-exact with the probe's integer operands and, on random bf16 operands,
 within 1e-5 of the largest sum of product magnitudes.  The tracer's
 counters on the card: one call into the kernel library a config-4 batch,
-two a config-5 batch, and a served 1080p frame's 6,220,800 bytes.  The
+one a config-5 batch (the fused warp), and a served 1080p frame's 6,220,800 bytes.  The
 launch records of ``Preprocessor.batch``: a hit, a miss and the public
 wrappers bit for bit on each CUDA route, with None, int and tensor tops
 changing every call, on ``StreamExecutor``'s four lane streams and with
@@ -713,13 +714,14 @@ def test_preprocessor_config5_launches_one_warp_per_batch(cuda):
     pre = Preprocessor(cfg, device="cuda")
     batch = batch_on(cuda, n=3, seed=13)
     assert pre.describe_route(batch.shape[1:]) == "cuda_warp"
-    names = ("warp_affine", "preprocess_fused_planar", "normalize_fused", "warp_affine_torch",
-             "preprocess_fused_planar_torch", "normalize_fused_torch")
+    names = ("preprocess_fused_warp", "warp_affine", "preprocess_fused_planar", "normalize_fused",
+             "warp_affine_torch", "preprocess_fused_planar_torch", "normalize_fused_torch")
     before = [config.kernel_count(k) for k in names]
     got = pre.batch(batch, top=torch.tensor(7, device=cuda))
     torch.cuda.synchronize()
-    # One warp launch and one planar tail call a batch, no normalize a frame.
-    assert [config.kernel_count(k) - b for k, b in zip(names, before)] == [1, 1, 0, 0, 0, 0]
+    # One fused warp call a batch (the warp sampled inside the planar tail's
+    # resize), no warp launch of its own, no normalize a frame.
+    assert [config.kernel_count(k) - b for k, b in zip(names, before)] == [1, 0, 0, 0, 0, 0, 0]
     with config.backend("torch"):
         want = pre.batch(batch, top=torch.tensor(7, device=cuda))
     assert_close(got, want, "self")
@@ -836,10 +838,11 @@ def test_warp_hwc3_form_border_rules(cuda, matrix, rule):
 
 
 def test_warp_hwc3_launches_count_config_5_batches_only(cuda):
-    """``warp.hwc3_launches`` rises by one a config-5 batch, launch-record
-    hits included, and not at all for planar, f32, cubic, nearest or
-    4-channel calls; the kernel the profiler sees is the one
-    ``hwc3_form`` names."""
+    """``warp.hwc3_launches`` rises by one a call of the warp's 3-channel
+    HWC form, and not at all for a config-5 batch (it takes the fused warp,
+    one ``preprocess_fused_warp`` call a batch, launch-record hits included)
+    or for planar, f32, cubic, nearest or 4-channel calls; the kernel the
+    profiler sees is the one ``hwc3_form`` names."""
     from vacv_tpu_torch.ops.cuda.warp_affine import hwc3_form
     from vacv_tpu_torch.utils import trace
 
@@ -849,10 +852,12 @@ def test_warp_hwc3_launches_count_config_5_batches_only(cuda):
     batch = batch_on(cuda, n=16, h=1440, w=2560, seed=21)
     top = torch.tensor(20, dtype=torch.int32, device=cuda)
     before, hits = hwc3_launches(), trace.counter("pipeline.record_hits")
+    fused = config.kernel_count("preprocess_fused_warp")
     for _ in range(3):
         pre.batch(batch, top=top)
     torch.cuda.synchronize()
-    assert hwc3_launches() == before + 3
+    assert hwc3_launches() == before
+    assert config.kernel_count("preprocess_fused_warp") == fused + 3
     assert trace.counter("pipeline.record_hits") >= hits + 2
     minv = vt.invert_affine(M_ROT)
     hwc = batch[:2, 36:1404, 64:2496].permute(0, 3, 1, 2)
@@ -1185,7 +1190,7 @@ def _config5(frame_w=2560, frame_h=1440):
         device="cuda")
 
 
-@pytest.mark.parametrize("which,calls", [("config4", 1), ("config5", 2)])
+@pytest.mark.parametrize("which,calls", [("config4", 1), ("config5", 1)])
 def test_a_batch_makes_its_calls_into_the_kernel_library(cuda, which, calls):
     from vacv_tpu_torch.utils import trace
 

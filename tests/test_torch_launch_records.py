@@ -3,15 +3,18 @@
 ``Preprocessor.batch`` keeps, for each ``launch_signature`` of a CUDA batch
 (backend preference, shape, strides, type, device, current stream, kind of
 top), a record of its launch: ``FusedLaunch`` on the fused routes, a warp
-record (the warp's ``WarpLaunch`` and the planar tail's ``FusedLaunch``) on
-the warp route.  A later batch of the signature only runs the record.
+record on the warp route: one ``FusedLaunch`` of the fused warp
+(``prepare_fused_warp``) where it serves the batch, else the warp's
+``WarpLaunch`` and the planar tail's ``FusedLaunch``.  A later batch of the
+signature only runs the record.
 
 There is no card here: these tests run the records on CPU tensors against a
 fake kernel library that keeps the arguments of every call, with a settable
 stand-in for the current stream's handle.  They hold each argument tuple,
 field by field, to the tuple the wrappers packed before the records existed
 (``parent_fused_args`` and ``parent_warp_args`` below, that packing written
-out).  ``tests/test_torch_cuda.py`` holds a hit, a miss and the public
+out), and the fused warp's to ``fused_warp_args``, its entry's arguments
+written out.  ``tests/test_torch_cuda.py`` holds a hit, a miss and the public
 wrapper to the same bits on the card.
 """
 import ctypes
@@ -41,7 +44,7 @@ LIMITS = [132, 2048, 232448, 233472]  # an H100's, as vacv_preprocess_limits giv
 # where each entry takes the top's address (the crop top just before it)
 TOP_PTR = {"vacv_preprocess_moments": 13, "vacv_preprocess_resize": 11,
            "vacv_preprocess_nv_resize": 12, "vacv_preprocess_nv_one_pass": 12,
-           "vacv_warp_affine": 30}
+           "vacv_warp_affine": 30, "vacv_preprocess_warp_moments": 4}
 
 
 @pytest.fixture(autouse=True)
@@ -71,6 +74,8 @@ def lib(monkeypatch):
             top = None
             if at is not None and args[at] is not None:
                 top = ctypes.c_int32.from_address(args[at]).value
+            if name == "vacv_preprocess_warp_moments":  # its fixed arguments, field by field
+                args = args[:5] + flat_fields(pk._WarpMomentsArgs.from_address(args[5]))
             calls.append((name, args, top))
             return 0
         return fn
@@ -154,6 +159,41 @@ def parent_warp_args(planes, minv, h_out, w_out, out, stream, row0=None, rows=No
              c, h, w, *planes.stride(), out.data_ptr(), h_out, w_out, *out.stride(),
              *(float(v) for v in m), 1, 0, 0.0, 0, 0, None if top is None else top.data_ptr(),
              h_full))
+
+
+def flat_fields(struct) -> tuple:
+    """A ctypes structure's fields in order, arrays spread."""
+    out = []
+    for name, _ in struct._fields_:
+        v = getattr(struct, name)
+        out += list(v) if isinstance(v, ctypes.Array) else [v]
+    return tuple(out)
+
+
+def fused_warp_args(planes, minv, h_out, w_out, out, stream, scratch, out_size, row0=None,
+                    rows=None, interp="linear", mean=None, stddev=None):
+    """The fused warp's argument tuple, its fixed arguments spread as the
+    fake library spreads them: the warp of ``planes`` (as
+    ``parent_warp_args`` takes them) and the moments form's tail over its
+    output, with the scratch at ``scratch``."""
+    n, _, h_full, w = planes.shape
+    dev = planes.device
+    ow, oh = out_size
+    ys, yw = pk._device_taps(h_out, oh, interp, dev)
+    xs, xw = pk._device_taps(w_out, ow, interp, dev)
+    blocks = pk._scale_blocks(n, oh, ow, pk.card_limits(None))
+    at = -(-n * 3 * oh * ow // 16) * 16
+    mean_s, std_s = pk._static_stats(mean), pk._static_stats(stddev)
+    zeros = (0.0, 0.0, 0.0)
+    f32 = lambda v: float(np.float32(v))  # noqa: E731  (a float field's value)
+    return ("vacv_preprocess_warp_moments",
+            (dev.index, stream, planes.data_ptr(), out.data_ptr(),
+             None if row0 is None else row0.data_ptr(), scratch, scratch + at, ys.data_ptr(),
+             yw.data_ptr(), xs.data_ptr(), xw.data_ptr(), planes.stride(0), planes.stride(2), n,
+             h_full if rows is None else rows, w, h_full, h_out, w_out, oh, ow, yw.shape[1],
+             xw.shape[1], blocks, int(mean_s is not None), int(std_s is not None),
+             *np.asarray(minv, np.float32).reshape(6).tolist(),
+             f32(u8_eps(pk.INTERP_MODES[interp])), *(mean_s or zeros), *(std_s or zeros)))
 
 
 def only_calls(lib):
@@ -269,12 +309,28 @@ def test_an_nv_record_packs_the_wrappers_arguments(lib, form, top):
     assert only_calls(lib) == want
 
 
-def test_the_warp_records_pack_the_wrappers_arguments(lib):
-    """Config 5's route, with each kind of top: the warp on the batch's
-    bytes (no view made), into the held intermediate, then the planar
-    tail; each tuple as the two wrappers packed them on the views that the
-    route made."""
-    pre = Preprocessor(CFG5, device="cpu")
+# The warp route's tails: the fused warp where the tail takes the moments
+# form (self statistics, a static mean alone, cubic), the warp and the planar
+# tail where it does not (static statistics, normalize=False).
+WARP_TAILS = {
+    "fused": dict(),
+    "fused_static_mean": dict(mean=(104.0, 117.0, 123.0)),
+    "fused_cubic": dict(interpolation=InterMode.INTER_CUBIC),
+    "two_launch_static_stats": dict(mean=(104.0, 117.0, 123.0), stddev=(57.0, 57.0, 58.0)),
+    "two_launch_normalize_false": dict(normalize=False),
+}
+
+
+@pytest.mark.parametrize("tail", list(WARP_TAILS))
+def test_the_warp_records_pack_the_wrappers_arguments(lib, tail):
+    """Config 5's route, with each kind of top, on the batch's bytes (no
+    view made): where the tail takes the moments form, one call of the
+    fused warp; else the warp into the held intermediate, then the planar
+    tail.  Each tuple as the wrappers packed it on the views that the route
+    made."""
+    cfg = dataclasses.replace(CFG5, **WARP_TAILS[tail])
+    pre = Preprocessor(cfg, device="cpu")
+    interp = pipeline._FUSED_INTERP[InterMode(cfg.interpolation)]
     batch = frames(2)
     planes = batch.permute(0, 3, 1, 2)
     minv = pre._minv
@@ -288,12 +344,20 @@ def test_the_warp_records_pack_the_wrappers_arguments(lib):
             view, row0, rows = planes.narrow(3, 2, 60), top, 42
         else:
             view, row0, rows = planes[:, :, min(max(top, 0), 6):, 2:62][:, :, :42], None, None
+        if tail.startswith("fused"):
+            assert isinstance(rec, pipeline._FusedWarpRecord)
+            want = [fused_warp_args(view, minv, 30, 40, out, 0x5EED, rec.fused.held[-1].data_ptr(),
+                                    OUT, row0, rows, interp, cfg.mean, cfg.stddev)]
+            assert only_calls(lib) == want, top
+            continue
         warp = parent_warp_args(view, minv, 30, 40, rec.warped, 0x5EED, row0, rows)
-        geom = pk._planes_geometry(rec.warped, OUT, "linear")
-        plan = pk._plan(geom, "planar", pk.card_limits(None), True, None, None, True)
-        tail = parent_fused_args(rec.warped, out, geom, None, None, None, None, True, True,
-                                 "linear", plan, True, 0x5EED, rec.tail.held[-1].data_ptr())
-        assert only_calls(lib) == [warp] + tail, top
+        geom = pk._planes_geometry(rec.warped, OUT, interp)
+        plan = pk._plan(geom, "planar", pk.card_limits(None), cfg.normalize, cfg.mean,
+                        cfg.stddev, True)
+        scratch = rec.tail.held[-1].data_ptr() if plan.form == "moments" else None
+        tail_calls = parent_fused_args(rec.warped, out, geom, None, None, cfg.mean, cfg.stddev,
+                                       cfg.normalize, True, interp, plan, True, 0x5EED, scratch)
+        assert only_calls(lib) == [warp] + tail_calls, top
 
 
 def test_a_warp_record_into_a_given_output_packs_its_arguments_as_before(lib):
@@ -308,21 +372,30 @@ def test_a_warp_record_into_a_given_output_packs_its_arguments_as_before(lib):
     assert only_calls(lib) == [parent_warp_args(planes, minv, 30, 40, out, 0x5EED, top, 40)]
 
 
+@pytest.mark.parametrize("tail", ["fused", "two_launch_static_stats"])
 @pytest.mark.parametrize("top", [None, 9, torch.tensor(4, dtype=torch.int32)])
-def test_warp_records_count_the_3_channel_form(lib, top):
-    """``warp.hwc3_launches``: one a run of a record whose call takes the
-    kernel's 3-channel HWC form (config 5's route: a record made, then
-    hits), none for calls that do not (planar, f32, cubic)."""
-    pre = Preprocessor(CFG5, device="cpu")
+def test_warp_records_count_the_3_channel_form(lib, top, tail):
+    """Config 5's route, a record made, then hits: with the fused warp,
+    one ``preprocess_fused_warp`` call a batch and no
+    ``warp.hwc3_launches``; with a tail the fused warp does not serve, the
+    warp and the planar tail a batch, and one ``warp.hwc3_launches`` a run
+    of the warp.  None for warp calls that do not take the 3-channel HWC
+    form (planar, f32, cubic)."""
+    pre = Preprocessor(dataclasses.replace(CFG5, **WARP_TAILS[tail]), device="cpu")
     batch = frames(2)
     before = trace.counter("warp.hwc3_launches")
+    fused = config.kernel_count("preprocess_fused_warp")
     made, hits = trace.counter("pipeline.records_made"), trace.counter("pipeline.record_hits")
     for _ in range(3):
         pre._record(batch, top).run(batch, top)
     assert trace.counter("pipeline.records_made") == made + 1
     assert trace.counter("pipeline.record_hits") == hits + 2
-    assert len(lib.calls) == 3 * 2  # the warp and the planar tail, a batch
-    assert trace.counter("warp.hwc3_launches") == before + 3
+    one = tail == "fused"
+    assert [n for n, _, _ in lib.calls] == 3 * (["vacv_preprocess_warp_moments"] if one else
+                                                ["vacv_warp_affine", "vacv_preprocess_resize"])
+    assert config.kernel_count("preprocess_fused_warp") == fused + 3 * one
+    assert trace.counter("warp.hwc3_launches") == before + 3 * (not one)
+    before = trace.counter("warp.hwc3_launches")
     hwc = batch.permute(0, 3, 1, 2)
     minv = np.array([[1.1, 0.02, -3.0], [0.01, 0.9, 2.0]], np.float32)
     for planes, kw in ((hwc.contiguous(), {}), (hwc.float(), {}),
@@ -330,7 +403,27 @@ def test_warp_records_count_the_3_channel_form(lib, top):
         rec = warp_affine.prepare_warp_planes(planes, minv, 30, 40, **kw)
         assert not rec.hwc3
         rec.run(planes)
-    assert trace.counter("warp.hwc3_launches") == before + 3
+    assert trace.counter("warp.hwc3_launches") == before
+
+
+def test_the_fused_warp_serves_only_3_channel_hwc_moments_calls(lib):
+    """``prepare_fused_warp`` returns None, and the record keeps the warp
+    and the planar tail, where the warp's call does not take the 3-channel
+    HWC form (planar or f32 planes, an HWC view of 4 channels), where the
+    tail's plan is not the moments form, and for an empty batch."""
+    minv = np.array([[1.1, 0.02, -3.0], [0.01, 0.9, 2.0]], np.float32)
+    hwc = frames(2).permute(0, 3, 1, 2)
+    assert pk.prepare_fused_warp(hwc, minv, 30, 40, OUT) is not None
+    four = torch.zeros((2, 48, 64, 4), dtype=torch.uint8).permute(0, 3, 1, 2)[:, :3]
+    for planes in (hwc.contiguous(), four, hwc[:0]):
+        assert pk.prepare_fused_warp(planes, minv, 30, 40, OUT) is None
+    for kw in (dict(normalize=False), dict(mean=1.0, stddev=2.0)):
+        assert pk.prepare_fused_warp(hwc, minv, 30, 40, OUT, **kw) is None
+    with pytest.raises(ValueError):
+        pk.prepare_fused_warp(hwc, minv, 30, 40, OUT, interp="area")
+    with pytest.raises(ValueError):
+        pk.prepare_fused_warp(hwc, minv, 30, 40, OUT, row0=torch.tensor(2), rows=99)
+    assert lib.calls == []
 
 
 # --- the records in the Preprocessor -----------------------------------------

@@ -282,7 +282,8 @@ def test_plan_constants_are_the_kernels():
     from vacv_tpu_torch.ops.cuda import build
     from vacv_tpu_torch.ops.cuda import preprocess as pk
 
-    src = (build.SRC_DIR / "preprocess.cu").read_text()
+    # the C interface in preprocess.cu, the kernels and launches in preprocess.cuh
+    src = "".join((build.SRC_DIR / f).read_text() for f in ("preprocess.cu", "preprocess.cuh"))
     cases = set(re.findall(r"VACV_ONE_PASS_CASE\((\d), (\d)\)", src))
     assert {(int(a), int(b)) for a, b in cases} == {(1, 1), (1, 2), (2, 1), (2, 2)}
     threads = int(re.search(r"constexpr int kOnePassThreads = (\d+);", src).group(1))

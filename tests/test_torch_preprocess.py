@@ -286,7 +286,8 @@ def test_moments_constants_are_the_kernels():
     from vacv_tpu_torch.ops.cuda import build
     from vacv_tpu_torch.ops.cuda import preprocess as pk
 
-    src = (build.SRC_DIR / "preprocess.cu").read_text()
+    # the C interface in preprocess.cu, the kernels and launches in preprocess.cuh
+    src = "".join((build.SRC_DIR / f).read_text() for f in ("preprocess.cu", "preprocess.cuh"))
     assert int(re.search(r"constexpr int kScaleThreads = (\d+);", src).group(1)) == pk._SCALE_THREADS
     taps = {(a, b) for a in (1, 2, 4) for b in (1, 2, 4)}
     for case in ("VACV_MOMENTS_CASE", "VACV_RESIZE_CASE"):

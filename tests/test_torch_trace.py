@@ -310,6 +310,9 @@ def test_every_launch_site_counts_its_call_into_the_library(fake_library, spans)
         planes, top = torch.zeros((2, 3, 30, 40), dtype=torch.uint8), torch.tensor(3)
         warp_affine.prepare_warp_planes(planes, np.eye(2, 3), 20, 30, row0=top,
                                         rows=20).run(planes, top)
+        hwc = torch.zeros((2, 30, 40, 3), dtype=torch.uint8)
+        preprocess.prepare_fused_warp(hwc.permute(0, 3, 1, 2), np.eye(2, 3), 20, 30, (16, 12),
+                                      row0=top, rows=20).run(hwc, top)
         normalize._launch(torch.zeros((3, 20, 30), dtype=torch.uint8), "auto")
         yuv2bgr._launch(torch.zeros((20, 30), dtype=torch.uint8),
                         torch.zeros((10, 30), dtype=torch.uint8), False)
@@ -320,12 +323,14 @@ def test_every_launch_site_counts_its_call_into_the_library(fake_library, spans)
         assert fake_library == [
             "vacv_preprocess_moments", "vacv_preprocess_resize", "vacv_preprocess_normalize",
             "vacv_preprocess_resize", "vacv_preprocess_nv_one_pass", "vacv_preprocess_nv_resize",
-            "vacv_preprocess_normalize", "vacv_warp_affine", "vacv_normalize_planes",
-            "vacv_yuv2bgr", "vacv_match_corr", "vacv_window_sum", "vacv_probe_mma"]
-        assert trace.counter("native.calls") - calls == 13
+            "vacv_preprocess_normalize", "vacv_warp_affine", "vacv_preprocess_warp_moments",
+            "vacv_normalize_planes", "vacv_yuv2bgr", "vacv_match_corr", "vacv_window_sum",
+            "vacv_probe_mma"]
+        assert trace.counter("native.calls") - calls == 14
         spans_seen = trace.snapshot()["spans"]
-        assert spans_seen.get("native.call", {"count": 0})["count"] == (13 if spans else 0)
-        wrapper_calls = {"ops.x": 5, "ops.warp_affine": 1, "ops.normalize_fused": 1,
+        assert spans_seen.get("native.call", {"count": 0})["count"] == (14 if spans else 0)
+        wrapper_calls = {"ops.x": 5, "ops.warp_affine": 1, "ops.preprocess_fused_warp": 1,
+                         "ops.normalize_fused": 1,
                          "ops.yuv2bgr": 1, "ops.match_corr": 1, "ops.window_sum": 1,
                          "ops.probe_dot": 1}
         assert {k: v["count"] for k, v in spans_seen.items() if k.startswith("ops.")} == (

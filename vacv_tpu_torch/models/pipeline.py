@@ -24,7 +24,11 @@ with a planar tail, ``batch`` keeps the wrappers' prepared launches
 (at most ``_RECORDS`` of them, the oldest dropped first).  A later batch of
 the same signature only runs them: no route choice, no geometry, no views,
 no plan or table lookup.  The same kernels get the same arguments, so the
-output is the same bits.
+output is the same bits.  On the warp route the record takes one fused call
+(``prepare_fused_warp``: the warp sampled only where the tail's resize reads
+it, no warped intermediate, the same bits) wherever that call serves the
+batch: a 3-channel u8 HWC batch whose tail takes the moments form; else the
+warp's launch, then the planar tail's.
 
 Devices: a tensor is processed on the device it lies on; a numpy input
 goes to the ``device`` the Preprocessor was given, by default
@@ -45,7 +49,8 @@ from ..core.types import ColorCode, InterMode, Layout, VRect
 from ..ops.crop import crop, crop_dynamic, dynamic_slice, static_start
 from ..ops.cuda.preprocess import (
     INTERP_MODES, prepare_fused_batch, prepare_fused_nv_batch, prepare_fused_planes,
-    preprocess_fused_batch, preprocess_fused_nv_batch, preprocess_fused_planes,
+    prepare_fused_warp, preprocess_fused_batch, preprocess_fused_nv_batch,
+    preprocess_fused_planes,
 )
 from ..ops.cuda.warp_affine import prepare_warp_planes, warp_planes_batch
 from ..ops.cvt_color import cvt_color, nv_code, nv_decode_channels
@@ -76,26 +81,53 @@ def launch_signature(arr, top) -> tuple:
             stream_key(arr.device), kind)
 
 
-class _WarpRecord:
-    """A warp-route batch prepared: the warp's launch on the batch's bytes
-    from ``offset`` (and, for an int top, its clamped rows of ``row_bytes``
-    each), into the warped intermediate held here, then the planar tail's
-    launch.  Holding the intermediate is safe as ``FusedLaunch`` holds its
-    scratch: the warp kernel is an ordinary launch, so it writes the
-    intermediate only after the previous call's tail on this stream has
-    read it."""
+class _WarpRows:
+    """Where a warp-route record reads a batch: from ``offset`` bytes into
+    it, and for an int top, its clamped rows (at most ``row_hi``) of
+    ``row_bytes`` each, as ``_crop_args`` narrows them."""
 
-    __slots__ = ("warp", "tail", "warped", "offset", "row_bytes", "row_hi")
+    __slots__ = ("offset", "row_bytes", "row_hi")
 
-    def __init__(self, warp, tail, warped, offset, row_bytes, row_hi):
-        self.warp, self.tail, self.warped = warp, tail, warped
+    def __init__(self, offset, row_bytes, row_hi):
         self.offset, self.row_bytes, self.row_hi = offset, row_bytes, row_hi
 
+    def at(self, top):
+        """(the top the launch takes, the source's byte offset) for ``top``."""
+        if self.row_bytes:  # an int top: its rows narrowed here
+            return None, self.offset + min(max(int(top), 0), self.row_hi) * self.row_bytes
+        return top, self.offset
+
+
+class _FusedWarpRecord(_WarpRows):
+    """A warp-route batch prepared as one call, ``fused``, that samples the
+    warp inside the tail's resize (``prepare_fused_warp``)."""
+
+    __slots__ = ("fused",)
+
+    def __init__(self, fused, *at):
+        super().__init__(*at)
+        self.fused = fused
+
     def run(self, arr, top):
-        offset = self.offset
-        if self.row_bytes:  # an int top: its rows narrowed here, as _crop_args does
-            offset += min(max(int(top), 0), self.row_hi) * self.row_bytes
-            top = None
+        top, offset = self.at(top)
+        return self.fused.run(arr, top, offset)
+
+
+class _WarpRecord(_WarpRows):
+    """A warp-route batch prepared as the warp's launch into the warped
+    intermediate held here, then the planar tail's launch.  Holding the
+    intermediate is safe as ``FusedLaunch`` holds its scratch: the warp
+    kernel is an ordinary launch, so it writes the intermediate only after
+    the previous call's tail on this stream has read it."""
+
+    __slots__ = ("warp", "tail", "warped")
+
+    def __init__(self, warp, tail, warped, *at):
+        super().__init__(*at)
+        self.warp, self.tail, self.warped = warp, tail, warped
+
+    def run(self, arr, top):
+        top, offset = self.at(top)
         return self.tail.run(self.warp.run(arr, top, self.warped, offset))
 
 
@@ -351,9 +383,11 @@ class Preprocessor:
 
     def _prepare(self, arr, top):
         """The launch record of CUDA batches like ``arr`` with tops like
-        ``top``: the fused route's ``FusedLaunch``, or a ``_WarpRecord`` on
-        the warp route when the batch is (N, H, W, 3) u8 with no colour code
-        (its tail then takes the planar call); None for any other route."""
+        ``top``: the fused route's ``FusedLaunch``; on the warp route, when
+        the batch is (N, H, W, 3) u8 with no colour code (its tail then
+        takes the planar call), a ``_FusedWarpRecord`` where
+        ``prepare_fused_warp`` serves it, else a ``_WarpRecord``; None for
+        any other route."""
         if not self._warp_route():
             geom = self._fused_geometry(tuple(arr.shape[1:]), arr.dtype)
             if geom is None:
@@ -367,13 +401,17 @@ class Preprocessor:
         int_top = top is not None and not isinstance(top, torch.Tensor)
         planes, row0, rows, _ = self._warp_source(arr, 0 if int_top else top)
         _, (w, h) = cfg.warp
+        at = (planes.data_ptr() - arr.data_ptr(),
+              planes.stride(2) * planes.element_size() if int_top else 0,
+              arr.shape[1] - planes.shape[2])
+        kw = dict(interp=interp, mean=cfg.mean, stddev=cfg.stddev, normalize=cfg.normalize)
+        fused = prepare_fused_warp(planes, self._minv, int(h), int(w), cfg.out_size, row0=row0,
+                                   rows=rows, **kw)
+        if fused is not None:
+            return _FusedWarpRecord(fused, *at)
         warp = prepare_warp_planes(planes, self._minv, int(h), int(w), row0=row0, rows=rows)
         warped = torch.empty(warp.shape, dtype=torch.uint8, device=arr.device)
-        tail = prepare_fused_planes(warped, cfg.out_size, interp=interp, mean=cfg.mean,
-                                    stddev=cfg.stddev, normalize=cfg.normalize)
-        row_bytes = planes.stride(2) * planes.element_size() if int_top else 0
-        return _WarpRecord(warp, tail, warped, planes.data_ptr() - arr.data_ptr(), row_bytes,
-                           arr.shape[1] - planes.shape[2])
+        return _WarpRecord(warp, prepare_fused_planes(warped, cfg.out_size, **kw), warped, *at)
 
     def _record(self, arr, top):
         """The launch record of CUDA batch ``arr`` with ``top`` (``_prepare``),

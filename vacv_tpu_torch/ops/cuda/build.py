@@ -149,6 +149,8 @@ ENTRIES = {
     # device, stream, out, planes, plane, have_mean, have_std, stats
     "vacv_preprocess_normalize": [_i, _p, _p, _i, _ll, _i, _i] + _STATS,
     "vacv_preprocess_limits": [_i, _p],  # device, int[4]
+    # device, stream, src, out, the device top (or null), the fixed arguments (WarpMomentsArgs)
+    "vacv_preprocess_warp_moments": [_i, _p, _p, _p, _p, _p],
     # device, stream, x, is_u8, out, planes, plane, cluster, grid, per_plane, slice, cap,
     # rounds, evict_first, part
     "vacv_normalize_planes": [_i, _p, _p, _i, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _p],

@@ -18,7 +18,12 @@ points:
 normalize on (N, 3, h, w) u8 planes, the affine warp's output: BASELINE
 config 5's tail for the whole warped batch in one call (the reference
 runs that tail per frame under ``jax.vmap``, ``vacv_tpu/models/
-pipeline.py::_run_warp_fold``).
+pipeline.py::_run_warp_fold``).  ``prepare_fused_warp`` takes config 5's
+warp and that tail as one call (``csrc/preprocess_warp.cu``): the moments
+form's source is the warp itself, each warped pixel computed where the
+resize reads it, with the warp kernel's arithmetic, so the output is the
+two calls' bit for bit with no warped planes in between;
+``models/pipeline.py`` takes it wherever it serves a batch.
 
 Each wrapper launches the hand-written kernel
 (``vacv_tpu_torch/csrc/preprocess.cu``) on a CUDA tensor or raises; on a
@@ -54,6 +59,7 @@ the integer-moment statistics.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -61,7 +67,7 @@ import numpy as np
 import torch
 
 from ...core.device_tables import stream_cached, stream_key
-from ...core.types import InterMode
+from ...core.types import BorderMode, InterMode
 from ..crop import dynamic_slice
 from ..cvt_color import yuv_to_bgr_q7
 from ..normalize import normalize_planes
@@ -69,6 +75,7 @@ from ..resize import (
     _cubic_weights, _linear_weights, _nearest_weights, u8_epilogue, u8_eps,
 )
 from . import build
+from .warp_affine import _check as _check_warp, hwc3_form
 
 # The interpolations the kernel takes, and its taps per output row/column.
 INTERP_MODES = {
@@ -453,17 +460,27 @@ class FusedLaunch(build.Launch):
         super().__init__(name, device, shape, torch.float32)
         self.norm = self.norm_args = None
 
-    def run(self, batch, top=None):
-        """Launch the call on ``batch`` with ``top``; returns the (N, 3, oh,
-        ow) f32 output, a new tensor every call.  Traced as span
-        ``ops.<name>``."""
-        return self._run(batch.data_ptr(), top, None)
+    def run(self, batch, top=None, offset=0):
+        """Launch the call on ``batch``, its source ``offset`` bytes past
+        ``batch.data_ptr()``, with ``top``; returns the (N, 3, oh, ow) f32
+        output, a new tensor every call.  Traced as span ``ops.<name>``."""
+        return self._run(batch.data_ptr() + offset, top, None)
 
     def _more(self, out):
         if self.norm is not None:
             args = list(self.norm_args)
             args[2] = out.data_ptr()
             build.call(self.norm, args, f"{self.route} normalize kernel")
+
+
+def _moments_scratch(n: int, oh: int, ow: int, device):
+    """The moments form's scratch, kept by its record: the (n, 3, oh, ow) u8
+    planes, then each resize block's moments (6 x 8 bytes) at a 16-byte
+    boundary.  Returns (the tensor, the planes' address, the moments')."""
+    at = -(-n * 3 * oh * ow // 16) * 16
+    parts = -(-ow // 32) * -(-oh // 8)
+    scratch = torch.empty(at + n * parts * 48, dtype=torch.uint8, device=device)
+    return scratch, scratch.data_ptr(), scratch.data_ptr() + at
 
 
 def _prepare(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp, name, plan,
@@ -506,13 +523,10 @@ def _prepare(batch, geom, nv, top, mean, stddev, normalize, trunc_u8, interp, na
         rest = (eps, plan.blocks, plan.rows, plan.chan, *have, int(plan.stream),
                 slots.data_ptr(), *stats)
     elif plan.form == "moments":
-        plane, parts = oh * ow, -(-ow // 32) * -(-oh // 8)
-        # the u8 planes, then each resize block's moments (6 x 8 bytes) at a 16-byte boundary
-        at = -(-n * 3 * plane // 16) * 16
-        scratch = torch.empty(at + n * parts * 48, dtype=torch.uint8, device=dev)
+        scratch, planes_at, slots_at = _moments_scratch(n, oh, ow, dev)
         rec.held += (scratch,)
         entry, what = "vacv_preprocess_moments", "moments kernels"
-        front = head + (scratch.data_ptr(), scratch.data_ptr() + at, n, h, w, int(planar))
+        front = head + (planes_at, slots_at, n, h, w, int(planar))
         rest = (eps, plan.blocks, *have, *stats)
     else:
         entry = "vacv_preprocess_nv_resize" if nv is not None else "vacv_preprocess_resize"
@@ -646,6 +660,75 @@ def prepare_fused_planes(planes, out_size, *, interp="linear", mean=None, stddev
     plan = _plan(geom, "planar", card_limits(planes.device.index), normalize, mean, stddev, True)
     return _prepare(planes, geom, None, None, mean, stddev, normalize, True, interp,
                     "preprocess_fused_planar", plan, planar=True)
+
+
+class _WarpMomentsArgs(ctypes.Structure):
+    """The fused warp's fixed arguments, made once a record and passed by
+    address (``WarpMomentsArgs`` in ``csrc/preprocess_warp.cu``, field for
+    field): a call converts six arguments where it would convert
+    thirty-eight."""
+
+    _fields_ = [*((k, ctypes.c_void_p) for k in ("planes", "slots", "ystart", "ywt", "xstart",
+                                                   "xwt")),
+                ("sn", ctypes.c_longlong), ("sy", ctypes.c_longlong),
+                *((k, ctypes.c_int) for k in ("n", "h", "w", "rows_full", "h_out", "w_out", "oh",
+                                               "ow", "ky", "kx", "blocks", "have_mean",
+                                               "have_std")),
+                ("m", ctypes.c_float * 6), ("eps", ctypes.c_float),
+                ("mean", ctypes.c_float * 3), ("std", ctypes.c_float * 3)]
+
+
+def prepare_fused_warp(planes, minv, h_out: int, w_out: int, out_size, *, row0=None, rows=None,
+                       interp="linear", mean=None, stddev=None,
+                       normalize=True) -> FusedLaunch | None:
+    """``warp_planes_batch`` (linear, constant border 0, as the
+    Preprocessor warps) followed by ``preprocess_fused_planes`` on its
+    output, prepared as one call on the card that samples the warp only
+    where the tail's resize reads it (``csrc/preprocess_warp.cu``): the
+    same bits, no warped intermediate.  ``planes``, ``minv``, ``h_out``,
+    ``w_out``, ``row0`` and ``rows`` as the warp takes them, the rest as
+    the tail takes them.
+
+    Returns the record (``FusedLaunch``, counted as
+    ``"preprocess_fused_warp"``; its tops: none or a tensor ``row0``), or
+    None where this form does not serve the pair: the warp's call does not
+    take the 3-channel HWC form (``warp_affine.hwc3_form``: u8, three
+    channels through an HWC view, 32-bit offsets), or the tail's plan is not
+    the moments form (``launch_plan``: truncated output with a
+    self-computed statistic).  Raises ValueError as the two wrappers do."""
+    _check_warp(planes, InterMode.INTER_LINEAR, BorderMode.BORDER_CONSTANT, row0, rows)
+    n = planes.shape[0]
+    if interp not in INTERP_MODES:
+        raise ValueError(f"interp must be one of {tuple(INTERP_MODES)}, got {interp!r}")
+    if n == 0 or not hwc3_form(planes):
+        return None
+    *_, oh, ow = _crop_geometry(h_out, w_out, None, out_size, None)
+    geom = (n, h_out, w_out, 0, 0, w_out, h_out, oh, ow)
+    plan = _plan(geom, "planar", card_limits(planes.device.index), normalize, mean, stddev, True)
+    if plan.form != "moments":
+        return None
+    dev = planes.device
+    h_full, w = planes.shape[2:]
+    h = h_full if rows is None else int(rows)
+    ys, yw = _device_taps(h_out, oh, interp, dev)
+    xs, xw = _device_taps(w_out, ow, interp, dev)
+    mean_s, std_s = _static_stats(mean), _static_stats(stddev)
+    zeros = (0.0, 0.0, 0.0)
+    scratch, planes_at, slots_at = _moments_scratch(n, oh, ow, dev)
+    sn, _, sy, _ = planes.stride()
+    fixed = _WarpMomentsArgs(
+        planes_at, slots_at, ys.data_ptr(), yw.data_ptr(), xs.data_ptr(), xw.data_ptr(), sn, sy,
+        n, h, w, h_full, h_out, w_out, oh, ow, yw.shape[1], xw.shape[1], plan.blocks,
+        int(mean_s is not None), int(std_s is not None),
+        tuple(float(v) for v in np.asarray(minv, np.float32).reshape(6)),
+        u8_eps(INTERP_MODES[interp]), mean_s or zeros, std_s or zeros)
+    rec = FusedLaunch("preprocess_fused_warp", dev, (n, 3, oh, ow))
+    rec.held = (ys, yw, xs, xw, fixed, scratch)
+    rec.bind("vacv_preprocess_warp_moments",
+             (dev.index, stream_key(dev), None, None, None, ctypes.addressof(fixed)),
+             "preprocess_fused_warp moments kernels")
+    rec.top_kind(row0, 4)  # the device top's address
+    return rec
 
 
 def preprocess_fused_planes(planes, out_size, *, interp="linear", mean=None, stddev=None,
