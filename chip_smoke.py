@@ -156,7 +156,13 @@ libraries SASS for SASS (``cuobjdump -sass``: config 4's
 ``nv_one_pass_kernel`` must be the parent's).  ``python3 chip_smoke.py
 --fused-warp [--parent DIR]`` runs the device and build phases, the fused
 warp's compare and timing and, with ``--parent``, the SASS comparison
-alone.
+alone; ``--align [--parent DIR]`` the same for the alignment kernel
+(``csrc/align.cu``: bit for bit the per-face ``warp_affine_normalize`` chain
+and the plain version at ``align.resident``'s 16 1080p frames and ~190
+faces, the ``Aligner``'s main path under three face counts, then its queued
+and profiler time against the least bytes, a record's host time and the
+per-face chain's time); the whole run does all of it too, and reports it
+in the kernels line.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -200,7 +206,12 @@ KERNELS = {
     # Config 5 in one call: the warp sampled inside kernel #1's moments form.
     "preprocess_fused_warp": ("vacv_tpu_torch/csrc/preprocess_warp.cu",
                               "vacv_tpu/ops/pallas/warp_affine.py:365"),
+    # No TPU kernel: every face of a batch in one launch, where vacv calls
+    # warp_affine_normalize (a warp, then a normalize) once a face.
+    "align_faces": ("vacv_tpu_torch/csrc/align.cu", "vacv_tpu/ops/fused.py:131"),
 }
+ALIGN_BATCH = 16  # align.resident's frames a batch
+ARCFACE = ((127.5,) * 3, (127.5,) * 3)
 # BASELINE config 5 (benchmarks/baseline_configs.py:148-186): 2560x1440
 # frames, crop (64, 36)-(2496, 1404), a rotated warp to 1216x684, 224 out,
 # two frames per device.
@@ -272,7 +283,7 @@ def phase_build() -> None:
     # The u8 linear warp kernels' and the fused warp's registers and spills, for PERF.md.
     for i, line in enumerate(lines):
         name = re.search(r"Function properties for (\w*warp_kernel(?:_hwc3|IhLi1E)\w*"
-                         r"|\w*moments_resize_kernel\w*WarpSource\w*)", line)
+                         r"|\w*moments_resize_kernel\w*WarpSource\w*|\w*align_kernel\w*)", line)
         if name:
             used = next((x for x in lines[i + 2:i + 6] if "Used" in x), "")
             log(f"[build] {name.group(1)}: {lines[i + 1].strip()}; {used.split(':', 1)[-1].strip()}")
@@ -998,6 +1009,140 @@ def phase_compare_fused_warp() -> float:
     log(f"[compare] fused warp: bit for bit the two-launch chain; worst max_abs={worst} "
         "against the plain version")
     return worst
+
+
+def align_inputs(n: int, seed: int):
+    """``align.resident``'s configuration, its chain, the face table of a
+    batch of ``n`` frames (the chain's ``tops``: ~12 faces a frame, drawn
+    frame by frame) and the frames, index and matrices on the card."""
+    from portbench import manifest
+
+    bench = manifest.load()
+    cfg = manifest.config(bench, manifest.cell(bench, "align.resident"))
+    chain = manifest.chain(cfg)
+    table = chain.tops(cfg, n, seed, 0)
+    return (cfg, chain, table, make_batch(n, H, W, seed), *chain.on_device(table, "cuda"))
+
+
+def per_face_chain(frames, index, mats, mean, std, to_rgb):
+    """vacv's ``warp_affine_normalize`` on each face's frame on the card, as
+    (3, 112, 112) planes in output order: what the alignment kernel
+    replaces."""
+    import vacv_tpu_torch as vt
+
+    m, s = (tuple(reversed(v)) for v in (mean, std)) if to_rgb else (mean, std)
+    outs = []
+    for k, f in enumerate(index.tolist()):
+        chw = vt.warp_affine_normalize(frames[f], mats[k].cpu().numpy(), (112, 112), mean=m,
+                                       stddev=s).data.permute(2, 0, 1)
+        outs.append(chw.flip(0) if to_rgb else chw)
+    return torch.stack(outs)
+
+
+def phase_compare_align() -> float:
+    """The alignment kernel (``csrc/align.cu``) at ``align.resident``'s
+    shapes (16 1080p frames, ~190 faces from the chain's tables: boxes of 40
+    to 400 px, rolls within 30 degrees, faces over the edges) and at 2
+    frames; ArcFace's statistics in RGB and per-channel ones in BGR: bit for
+    bit the per-face chain and the plain version on the card, one launch a
+    call, and no launch for a batch of no faces.  Returns the max-abs gap
+    to the plain version."""
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.ops.cuda.align import align_faces, align_faces_torch
+
+    worst = 0.0
+    for n, (mean, std), to_rgb in ((ALIGN_BATCH, ARCFACE, True),
+                                   (ALIGN_BATCH, (STATIC["mean"], STATIC["stddev"]), False),
+                                   (2, ARCFACE, True)):
+        _, _, table, frames, index, mats = align_inputs(n, seed=190 + n + to_rgb)
+        before = config.kernel_count("native.calls")
+        got = align_faces(frames, index, mats, (112, 112), mean, std, to_rgb)
+        torch.cuda.synchronize()
+        label = f"alignment {n} frames {len(table.index)} faces {'rgb' if to_rgb else 'bgr'}"
+        require(config.kernel_count("native.calls") == before + 1, f"{label}: not one launch")
+        plain = align_faces_torch(frames, index, mats, (112, 112), mean, std, to_rgb)
+        require(torch.equal(got, plain), f"{label}: differs from the plain version "
+                f"(max abs {(got - plain).abs().max().item()})")
+        chain = per_face_chain(frames, index, mats, mean, std, to_rgb)
+        require(torch.equal(got, chain), f"{label}: differs from the per-face chain "
+                f"(max abs {(got - chain).abs().max().item()})")
+        worst = max(worst, float((got - plain).abs().max()))
+        log(f"[compare] {label}: bit for bit the per-face chain and the plain version, one launch")
+    frames = make_batch(2, H, W, seed=1)
+    before = config.kernel_count("native.calls")
+    empty = align_faces(frames, torch.zeros(0, dtype=torch.int32, device="cuda"),
+                        torch.zeros((0, 2, 3), device="cuda"), (112, 112), *ARCFACE)
+    require(empty.shape == (0, 3, 112, 112) and config.kernel_count("native.calls") == before,
+            "alignment of no faces launched")
+    log("[compare] alignment of no faces: an empty output, no launch")
+    return worst
+
+
+def phase_main_align() -> int:
+    """Face alignment on its main path, ``models.Aligner.batch``, the counts
+    set to 0 just before: one batch of 16 1080p frames under three face
+    tables of the cell's draw (a K each), one launch of the alignment
+    kernel a table, one launch record made and hit after, each output bit
+    for bit the plain version on the card.  Returns the launches."""
+    from portbench import manifest
+    from vacv_tpu_torch import config
+    from vacv_tpu_torch.models import Aligner
+    from vacv_tpu_torch.ops.cuda.align import align_faces_torch
+
+    bench = manifest.load()
+    cfg = manifest.config(bench, manifest.cell(bench, "align.resident"))
+    chain = manifest.chain(cfg)
+    frames = make_batch(ALIGN_BATCH, H, W, seed=210)
+    pool = chain.face_tables(cfg, ALIGN_BATCH, 24, 211, 0)
+    every = chain.tables_on_device(pool, "cuda")
+    tables, rois = zip(*((pool[t], every[t]) for t in (0, 8, 16)))  # three runs of counts
+    aligner = Aligner(device="cuda")
+    config.reset_kernel_counts()
+    outs = [aligner.batch(frames, *r) for r in rois]
+    torch.cuda.synchronize()
+    names = ("align_faces", "align.batches", "align.records_made", "align.record_hits",
+             "align_faces_torch")
+    counts = {k: config.kernel_count(k) for k in names}
+    ks = [len(t.index) for t in tables]
+    log(f"[main] alignment of {ALIGN_BATCH} x 1080p under tables of {ks} faces: {counts}")
+    require(counts == dict(zip(names, (3, 3, 1, 2, 0))), f"alignment counts {counts}")
+    for k, ((index, mats), got) in enumerate(zip(rois, outs)):
+        want = align_faces_torch(frames, index, mats, (112, 112), *ARCFACE, True)
+        require(torch.equal(got, want), f"alignment table {k}: differs from the plain version")
+    log("[main] alignment: one launch a table, one record for every face count, bit for bit "
+        "the plain version")
+    return counts["align_faces"]
+
+
+def time_align(card: str) -> dict:
+    """The alignment kernel at ``align.resident``'s shape (16 1080p frames,
+    ~190 faces, ArcFace's input): queued device time (``queued_us``) and the
+    profiler's kernel time against the batch's least bytes (the chain's
+    ``table_bytes`` at 3.35 TB/s), a launch record's host time a call, and
+    the per-face chain it replaces on the same batch (CUDA events)."""
+    from vacv_tpu_torch.ops.cuda.align import align_faces_torch, prepare_align_faces
+
+    cfg, chain, table, frames, index, mats = align_inputs(ALIGN_BATCH, seed=200)
+    rec = prepare_align_faces(frames, index, mats, (112, 112), *ARCFACE, True)
+    fn = lambda: rec.run(frames, index, mats)  # noqa: E731
+    queued = [queued_us(fn) for _ in range(2)]
+    total, kernels = device_profile(fn, 20)
+    least = chain.table_bytes(cfg, table) / (HBM_TBPS * 1e12) * 1e6
+    host = host_us(fn, 200)
+    per_face = ms_per_call(lambda: per_face_chain(frames, index, mats, *ARCFACE, True), 3)
+    plain = ms_per_call(lambda: align_faces_torch(frames, index, mats, (112, 112), *ARCFACE,
+                                                  True), 5)
+    k = len(table.index)
+    log(f"[time] alignment {ALIGN_BATCH} x 1080p, {k} faces: queued device {queued[0]:.2f}, "
+        f"{queued[1]:.2f} us a batch; profiler {total:.2f} us; least bytes "
+        f"{chain.table_bytes(cfg, table) / 1e6:.2f} MB = {least:.2f} us at {HBM_TBPS} TB/s, "
+        f"{100 * least / min(queued):.1f}% of the queued time; host {host:.2f} us a record "
+        f"run; {ALIGN_BATCH / min(queued) * 1e6:.0f} frames/s on the card alone [{card}]")
+    for name, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
+        log(f"[time]   alignment: {t:9.2f} us/batch  {c:g} launches/batch  {name[:110]}")
+    log(f"[time] the per-face chain on the same batch: {per_face:.3f} ms "
+        f"({ALIGN_BATCH / per_face * 1e3:.0f} frames/s); the plain version {plain:.3f} ms [{card}]")
+    return timing(min(queued) / 1e3, plain, least / 1e3, "bytes", per_face)
 
 
 def close_response(label, got, want, mode, x, k) -> float:
@@ -2800,6 +2945,14 @@ def main() -> int:
         print(json.dumps({"kernel_times": kernel_times(card, CONFIG4_BATCHES)}), flush=True)
         return 0
     parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
+    if "--align" in sys.argv:
+        phase_compare_align()
+        phase_main_align()
+        time_align(card)
+        if parent:
+            compare_sass(Path(parent))
+        print(json.dumps({"ok": True, "align": True}), flush=True)
+        return 0
     if "--fused-warp" in sys.argv:
         phase_compare_fused_warp()
         time_fused_warp(card)
@@ -2818,6 +2971,7 @@ def main() -> int:
         "preprocess_fused_planar": phase_compare_planar(),
         "window_sum": phase_compare_window_sum(),
         "preprocess_fused_warp": phase_compare_fused_warp(),
+        "align_faces": phase_compare_align(),
     }
     # Each main path is driven with the counts set to 0 just before it
     # and read just after (inside each phase).
@@ -2834,6 +2988,7 @@ def main() -> int:
     launches["yuv2bgr"] += tracking["yuv2bgr"]
     launches["preprocess_fused_nv"] += tracking["preprocess_fused_nv"]
     launches["probe_dot"], probe_times = phase_main_probe(card)
+    launches["align_faces"] = phase_main_align()
     harness = phase_harness(card)
     for k in ("yuv2bgr", "preprocess_fused", "preprocess_fused_warp"):
         launches[k] += harness[k]
@@ -2849,7 +3004,7 @@ def main() -> int:
     dist.destroy_process_group()  # the NCCL world of one from make_mesh()
     times = {"preprocess_fused": phase_time(card), **phase_time_nv(card),
              **phase_time_warp_corr(card), "probe_dot": probe_times,
-             "preprocess_fused_warp": time_fused_warp(card)}
+             "preprocess_fused_warp": time_fused_warp(card), "align_faces": time_align(card)}
     per_call = kernel_times(card)
     for label, (_, n_launches) in per_call.items():
         if label.startswith(("normalize", "warp", "yuv2bgr", "NV21")):

@@ -247,21 +247,20 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
             assert not re.search(r"\.(argtypes|restype)\b", path.read_text()), path
 
 
-def test_the_fused_warps_fixed_arguments_are_the_c_struct():
-    """``_WarpMomentsArgs`` lays out ``WarpMomentsArgs`` of
-    ``csrc/preprocess_warp.cu`` field for field: the same names, types and
-    array lengths in the same order, so the same offsets."""
+def assert_c_struct(source: str, struct: str, ctypes_struct) -> None:
+    """``ctypes_struct`` lays out ``struct`` of ``csrc/<source>`` field for
+    field: the same names, types and array lengths in the same order, so
+    the same offsets."""
     import ctypes
     import re
 
     from vacv_tpu_torch.ops.cuda import build
-    from vacv_tpu_torch.ops.cuda.preprocess import _WarpMomentsArgs
 
     c_types = {"void*": ctypes.c_void_p, "const int*": ctypes.c_void_p,
                "const float*": ctypes.c_void_p, "long long": ctypes.c_longlong,
                "int": ctypes.c_int, "float": ctypes.c_float}
-    text = (build.SRC_DIR / "preprocess_warp.cu").read_text()
-    body = re.search(r"struct WarpMomentsArgs \{(.*?)\n\};", text, re.S).group(1)
+    text = (build.SRC_DIR / source).read_text()
+    body = re.search(rf"struct {struct} \{{(.*?)\n\}};", text, re.S).group(1)
     fields = []
     for line in body.splitlines():
         decl = line.split("//")[0].strip().rstrip(";")
@@ -275,7 +274,23 @@ def test_the_fused_warps_fixed_arguments_are_the_c_struct():
             fields.append((name, t * int(count) if count else t))
     assert [(n, getattr(t, "_length_", 0), getattr(t, "_type_", t)) for n, t in fields] == \
         [(n, getattr(t, "_length_", 0), getattr(t, "_type_", t)) for n, t in
-         _WarpMomentsArgs._fields_]
+         ctypes_struct._fields_]
+
+
+def test_the_fused_warps_fixed_arguments_are_the_c_struct():
+    """``_WarpMomentsArgs`` lays out ``WarpMomentsArgs`` of
+    ``csrc/preprocess_warp.cu`` field for field."""
+    from vacv_tpu_torch.ops.cuda.preprocess import _WarpMomentsArgs
+
+    assert_c_struct("preprocess_warp.cu", "WarpMomentsArgs", _WarpMomentsArgs)
+
+
+def test_the_alignments_fixed_arguments_are_the_c_struct():
+    """``_AlignArgs`` lays out ``AlignArgs`` of ``csrc/align.cu`` field for
+    field."""
+    from vacv_tpu_torch.ops.cuda.align import _AlignArgs
+
+    assert_c_struct("align.cu", "AlignArgs", _AlignArgs)
 
 
 # ---- the default device: the card unless the caller asks for the CPU ----

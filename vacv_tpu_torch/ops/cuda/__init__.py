@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sources in ``vacv_tpu_torch/csrc``),
 each beside its plain PyTorch version.  Importing builds nothing."""
+from .align import align_faces, align_faces_torch
 from .match_template import corr_planes, corr_planes_torch
 from .normalize import normalize_fused
 from .preprocess import (

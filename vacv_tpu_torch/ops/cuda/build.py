@@ -169,6 +169,8 @@ ENTRIES = {
     "vacv_match_corr": [_i, _p, _p, _i, _i, _i, _ll, _ll, _ll, _p, _i, _i, _p, _i],
     # device, stream, x, c, h, w, strides c/y/x, th, tw, sq, sums, rows, threads, kr, kc
     "vacv_window_sum": [_i, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _i, _p, _p, _i, _i, _i, _i],
+    # device, stream, frames, out, index, matrices, faces, the fixed arguments (AlignArgs)
+    "vacv_align_faces": [_i, _p, _p, _p, _p, _p, _i, _p],
     # device, stream, a, lda, b, ldb, out, m, k, n, reps, splits, is_i8
     "vacv_probe_mma": [_i, _p, _p, _ll, _p, _ll, _p, _i, _i, _i, _i, _i, _i],
     "vacv_cuda_error_string": [_i],

@@ -13,13 +13,18 @@ and transposes back to HWC; other inputs take the chain.  The warp forms
 go planar once before the warp, warp through the warp kernel's wrapper,
 and normalize through the ``normalize`` dispatcher (a CHW f32 image with
 self statistics goes to the standalone normalize kernel).
+
+``warp_affine_normalize_batch`` is the matrix form over a table of faces:
+every face of a batch of frames, each with its own matrix, warped and
+normalized with static statistics in one call of the alignment kernel's
+wrapper (``ops/cuda/align.py``), the bits of the per-face chain.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import config
-from ..core.image import Image, as_image
+from ..core.image import Image, as_image, as_tensor
 from ..core.types import BorderMode, InterMode, Layout, VScalar, VSize
 from .dtype import change_dtype
 from .normalize import normalize, normalize_torch
@@ -126,3 +131,32 @@ def warp_affine_normalize_rot(
                                    border_value),
         mean, stddev,
     )
+
+
+def warp_affine_normalize_batch(frames, index, matrices, dsize: VSize | tuple, mean, stddev,
+                                to_rgb: bool = False) -> torch.Tensor:
+    """The matrix form of ``warp_affine_normalize`` over a table of K faces
+    in (N, H, W, 3) u8 HWC frames: face k is frame ``index[k]`` ((K,) int32)
+    warped by its forward matrix ``matrices[k]`` ((K, 2, 3) float32) to
+    ``dsize`` (w, h), INTER_LINEAR with BORDER_CONSTANT 0, then
+    ``(x - mean) / (stddev + 1e-6)``; returns (K, 3, h, w) float32 CHW, the
+    planes in RGB order with ``to_rgb``.  ``mean`` and ``stddev`` are static
+    (a scalar or three values), in the output planes' order.  Face k is the
+    bits of ``warp_affine_normalize(frames[index[k]], matrices[k], dsize,
+    mean=m, stddev=s)`` as CHW, with m, s and the planes reversed for
+    ``to_rgb``.
+
+    Under the ``auto`` backend it goes through the alignment kernel's
+    wrapper (``ops/cuda/align.py``): one launch on CUDA tensors, the plain
+    version on CPU tensors; under ``torch`` it runs the plain version on
+    any device.  A numpy argument goes to the frames' device (the default
+    device for numpy frames)."""
+    from .cuda.align import align_faces, align_faces_torch
+
+    frames = as_tensor(frames)
+    index = as_tensor(index, frames.device)
+    matrices = as_tensor(matrices, frames.device)
+    if isinstance(dsize, VSize):
+        dsize = (dsize.w, dsize.h)
+    run = align_faces if config.use_fused() else align_faces_torch
+    return run(frames, index, matrices, dsize, mean, stddev, to_rgb)
